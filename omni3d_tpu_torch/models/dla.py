@@ -23,12 +23,12 @@ DLA_SPECS = {
 class BasicBlock(nn.Module):
     """3x3 + 3x3 residual block; the caller supplies the residual."""
 
-    def __init__(self, cin, cout, stride=1, dtype=None):
+    def __init__(self, cin, cout, stride=1, dtype=None, norm=FrozenBatchNorm2d):
         super().__init__()
         self.conv1 = conv2d(cin, cout, 3, stride, dtype=dtype)
-        self.bn1 = FrozenBatchNorm2d(cout)
+        self.bn1 = norm(cout)
         self.conv2 = conv2d(cout, cout, 3, 1, dtype=dtype)
-        self.bn2 = FrozenBatchNorm2d(cout)
+        self.bn2 = norm(cout)
 
     def forward(self, x, residual=None):
         if residual is None:
@@ -41,10 +41,10 @@ class BasicBlock(nn.Module):
 class Root(nn.Module):
     """Aggregation node: 1x1 conv over concatenated children + BN (+res) + relu."""
 
-    def __init__(self, cin, cout, residual=False, dtype=None):
+    def __init__(self, cin, cout, residual=False, dtype=None, norm=FrozenBatchNorm2d):
         super().__init__()
         self.conv = conv2d(cin, cout, 1, 1, padding=0, dtype=dtype)
-        self.bn = FrozenBatchNorm2d(cout)
+        self.bn = norm(cout)
         self.residual = residual
 
     def forward(self, children):
@@ -60,22 +60,23 @@ class Tree(nn.Module):
     checkpoint (and the JAX package) carry those tensors."""
 
     def __init__(self, levels, cin, cout, stride=1, level_root=False,
-                 root_dim=0, root_residual=False, dtype=None):
+                 root_dim=0, root_residual=False, dtype=None, norm=FrozenBatchNorm2d):
         super().__init__()
+        nd = dict(dtype=dtype, norm=norm)
         if root_dim == 0:
             root_dim = 2 * cout
         if level_root:
             root_dim += cin
         if levels == 1:
-            self.tree1 = BasicBlock(cin, cout, stride, dtype=dtype)
-            self.tree2 = BasicBlock(cout, cout, 1, dtype=dtype)
-            self.root = Root(root_dim, cout, root_residual, dtype=dtype)
+            self.tree1 = BasicBlock(cin, cout, stride, **nd)
+            self.tree2 = BasicBlock(cout, cout, 1, **nd)
+            self.root = Root(root_dim, cout, root_residual, **nd)
         else:
             self.tree1 = Tree(levels - 1, cin, cout, stride, root_dim=0,
-                              root_residual=root_residual, dtype=dtype)
+                              root_residual=root_residual, **nd)
             self.tree2 = Tree(levels - 1, cout, cout, root_dim=root_dim + cout,
-                              root_residual=root_residual, dtype=dtype)
-        self.project = (conv_bn(cin, cout, 1, relu=False, padding=0, dtype=dtype)
+                              root_residual=root_residual, **nd)
+        self.project = (conv_bn(cin, cout, 1, relu=False, padding=0, **nd)
                         if cin != cout else None)
         self.levels = levels
         self.level_root = level_root
@@ -91,26 +92,33 @@ class Tree(nn.Module):
             x1 = self.tree1(x, residual)
             x2 = self.tree2(x1)
             return self.root([x2, x1] + children)
+        if self.project is not None and self.project[1].training:
+            # the JAX package evaluates the unused projection here too, so
+            # its BN running statistics move in training; so do they here
+            with torch.no_grad():
+                self.project(bottom)
         x1 = self.tree1(x)
         children.append(x1)
         return self.tree2(x1, children=children)
 
 
 class DLA(nn.Module):
-    """DLA trunk emitting {p2..p6} at strides {4..64}."""
+    """DLA trunk emitting {p2..p6} at strides {4..64}; `norm` is the BN
+    module (FrozenBatchNorm2d for inference, BatchNorm2d for training)."""
 
-    def __init__(self, variant: str = "dla34", dtype=None):
+    def __init__(self, variant: str = "dla34", dtype=None, norm=FrozenBatchNorm2d):
         super().__init__()
         if variant not in DLA_SPECS:
             raise NotImplementedError(f"DLA variant {variant} is not ported")
         levels, ch, _ = DLA_SPECS[variant]
-        self.base_layer = conv_bn(3, ch[0], 7, dtype=dtype)
-        self.level0 = conv_bn(ch[0], ch[0], 3, dtype=dtype)
-        self.level1 = conv_bn(ch[0], ch[1], 3, stride=2, dtype=dtype)
-        self.level2 = Tree(levels[2], ch[1], ch[2], 2, dtype=dtype)
-        self.level3 = Tree(levels[3], ch[2], ch[3], 2, level_root=True, dtype=dtype)
-        self.level4 = Tree(levels[4], ch[3], ch[4], 2, level_root=True, dtype=dtype)
-        self.level5 = Tree(levels[5], ch[4], ch[5], 2, level_root=True, dtype=dtype)
+        nd = dict(dtype=dtype, norm=norm)
+        self.base_layer = conv_bn(3, ch[0], 7, **nd)
+        self.level0 = conv_bn(ch[0], ch[0], 3, **nd)
+        self.level1 = conv_bn(ch[0], ch[1], 3, stride=2, **nd)
+        self.level2 = Tree(levels[2], ch[1], ch[2], 2, **nd)
+        self.level3 = Tree(levels[3], ch[2], ch[3], 2, level_root=True, **nd)
+        self.level4 = Tree(levels[4], ch[3], ch[4], 2, level_root=True, **nd)
+        self.level5 = Tree(levels[5], ch[4], ch[5], 2, level_root=True, **nd)
         self.out_channels = {"p2": ch[2], "p3": ch[3], "p4": ch[4], "p5": ch[5],
                              "p6": ch[5]}
 

@@ -14,6 +14,7 @@ import torch.nn.functional as F
 from ..ops import nms as nms_ops
 from ..utils import boxes as box_ops
 from ..utils import geometry as G
+from .layers import Linear
 
 NEG_INF = -1e10
 
@@ -30,7 +31,7 @@ class _FCTrunk(nn.Module):
         super().__init__()
         self.num_fc = num_fc
         for i in range(num_fc):
-            self.add_module(f"fc{i + 1}", nn.Linear(in_dim if i == 0 else fc_dim,
+            self.add_module(f"fc{i + 1}", Linear(in_dim if i == 0 else fc_dim,
                                                     fc_dim, dtype=dtype))
 
     def forward(self, x):
@@ -51,8 +52,8 @@ class FastRCNNPredictor(nn.Module):
 
     def __init__(self, in_dim: int, num_classes: int, dtype=None):
         super().__init__()
-        self.cls_score = nn.Linear(in_dim, num_classes + 1, dtype=dtype)
-        self.bbox_pred = nn.Linear(in_dim, num_classes * 4, dtype=dtype)
+        self.cls_score = Linear(in_dim, num_classes + 1, dtype=dtype)
+        self.bbox_pred = Linear(in_dim, num_classes * 4, dtype=dtype)
 
     def forward(self, x):
         return self.cls_score(x), self.bbox_pred(x)
@@ -146,11 +147,11 @@ class CubeHead(nn.Module):
         for b in branches:
             self.add_module(f"feature_generator{b}", _FCTrunk(in_dim, fc_dim, num_fc, dtype))
         feat = fc_dim if num_fc else in_dim
-        self.bbox_3D_center_deltas = nn.Linear(feat, C * 2, dtype=dtype)
-        self.bbox_3D_dims = nn.Linear(feat, C * 3, dtype=dtype)
-        self.bbox_3D_pose = nn.Linear(feat, C * _POSE_DIM[pose_type], dtype=dtype)
-        self.bbox_3D_center_depth = nn.Linear(feat, C * bins, dtype=dtype)
-        self.bbox_3D_uncertainty = nn.Linear(feat, C, dtype=dtype) if use_conf else None
+        self.bbox_3D_center_deltas = Linear(feat, C * 2, dtype=dtype)
+        self.bbox_3D_dims = Linear(feat, C * 3, dtype=dtype)
+        self.bbox_3D_pose = Linear(feat, C * _POSE_DIM[pose_type], dtype=dtype)
+        self.bbox_3D_center_depth = Linear(feat, C * bins, dtype=dtype)
+        self.bbox_3D_uncertainty = Linear(feat, C, dtype=dtype) if use_conf else None
 
     def forward(self, x):
         """x (N, P, P, C) -> deltas (N, C, 2), z (N, C) or (N, bins, C),
@@ -245,8 +246,8 @@ def decode_cube(outputs, classes, src_boxes, Ks_scaled, fy_net, priors_dims,
         dims = torch.exp(dims_norm.clamp(max=5.0))
 
     pose_allo = pose
-    if allocentric:
-        pose = G.R_from_allocentric(Ks_scaled, pose_allo, x, y)
+    if allocentric:   # no gradient to the center through the ray (as in JAX)
+        pose = G.R_from_allocentric(Ks_scaled, pose_allo, x.detach(), y.detach())
 
     z_norm = z_raw
     z_mean = z_std = None

@@ -1,11 +1,12 @@
-"""Cube R-CNN meta-architecture, inference (port of `omni3d_tpu.models.rcnn3d`).
+"""Cube R-CNN meta-architecture (port of `omni3d_tpu.models.rcnn3d`).
 
 `CubeRCNN` holds every parameter under detectron2's key names (backbone,
 proposal_generator.rpn_head, roi_heads.{box_head, box_predictor, cube_head,
 priors_*}), so a state dict from `utils.checkpoint.state_dict_from_flax`
-loads with strict=True. `inference` is the counterpart of the JAX
-package's `inference_impl`: the same arguments, the same padded fixed-size
-outputs and keys. Both poolers go through `ops.roi_align_cuda`.
+loads with strict=True, in inference and in training mode alike.
+`inference` is the counterpart of the JAX package's `inference_impl`: the
+same arguments, the same padded fixed-size outputs and keys. Both poolers go
+through `ops.roi_align_cuda`. The training losses live in `engine.train`.
 """
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ from ..config.cfg import StaticCfg
 from ..ops.roi_align_cuda import multilevel_roi_align
 from . import anchors as anchor_lib
 from .dla import DLA
+from .layers import BatchNorm2d, FrozenBatchNorm2d
 from .fpn import FPN
 from .heads import (BoxHead, CubeHead, FastRCNNPredictor, decode_cube,
                     fast_rcnn_inference, scale_proposals)
@@ -50,28 +52,55 @@ class ROIHeads(nn.Module):
 
 
 class CubeRCNN(nn.Module):
-    """All Cube R-CNN parameters, DLA backbone only. Convolutions and linear
-    layers hold their weights in `dtype` (the compute dtype); BN buffers and
-    priors stay float32."""
+    """All Cube R-CNN parameters, DLA backbone only; `dtype` is the compute
+    dtype, which the images are cast to at the entry.
 
-    def __init__(self, cfg, dtype=torch.float32):
+    Inference (`train=False`): convolutions and linear layers hold their
+    weights in `dtype`; BN is `FrozenBatchNorm2d` (buffers). Training
+    (`train=True`): every parameter is float32 (the master weights) and the
+    layers cast them to `dtype` per call, as flax's `dtype=` with float32
+    `param_dtype` does; BN is the trainable `BatchNorm2d`, whose batch
+    statistics are used and tracked in train mode unless MODEL.USE_BN is
+    False (then BN keeps its running statistics and only its affine trains,
+    as the JAX package's `_EvalBN` parameters do). Priors are float32
+    buffers in both: they get no gradient and no weight decay.
+    """
+
+    def __init__(self, cfg, dtype=torch.float32, train: bool = False):
         super().__init__()
         if cfg.MODEL.BACKBONE.NAME != "build_dla_from_vision_fpn_backbone":
             raise NotImplementedError(
                 f"backbone {cfg.MODEL.BACKBONE.NAME} is not ported; DLA only")
         self.cfg = cfg
         self.dtype = dtype
-        bottom_up = DLA(cfg.MODEL.DLA.TYPE, dtype=dtype)
+        pdtype = torch.float32 if train else dtype
+        bottom_up = DLA(cfg.MODEL.DLA.TYPE, dtype=pdtype,
+                        norm=BatchNorm2d if train else FrozenBatchNorm2d)
         out_ch = cfg.MODEL.FPN.OUT_CHANNELS
         self.backbone = FPN(bottom_up, bottom_up.out_channels,
                             tuple(cfg.MODEL.FPN.IN_FEATURES), out_ch,
-                            cfg.MODEL.FPN.FUSE_TYPE, dtype=dtype)
+                            cfg.MODEL.FPN.FUSE_TYPE, dtype=pdtype)
         ag = cfg.MODEL.ANCHOR_GENERATOR
         num_anchors = len(ag.ASPECT_RATIOS[0]) * len(ag.SIZES[0])
         self.proposal_generator = nn.ModuleDict(
-            {"rpn_head": RPNHead(num_anchors, out_ch, dtype=dtype)})
-        self.roi_heads = ROIHeads(cfg, out_ch, dtype=dtype)
+            {"rpn_head": RPNHead(num_anchors, out_ch, dtype=pdtype)})
+        self.roi_heads = ROIHeads(cfg, out_ch, dtype=pdtype)
         self._anchors = {}
+
+    def train(self, mode: bool = True):
+        super().train(mode)
+        if mode and not self.cfg.MODEL.USE_BN:   # frozen BN statistics
+            for m in self.modules():
+                if isinstance(m, BatchNorm2d):
+                    m.eval()
+        return self
+
+    def features(self, images):
+        """(B, H, W, 3) normalized images -> the p2..p6 maps as channels-last
+        NCHW tensors in the compute dtype, and their NHWC views."""
+        feats = self.backbone(images.permute(0, 3, 1, 2).to(self.dtype))
+        # NHWC views of the channels-last maps: the pooler reads them in place
+        return feats, [feats[f].permute(0, 2, 3, 1).contiguous() for f in FEATURE_NAMES]
 
     def anchors(self, feat_shapes, device):
         """Anchors per level as tensors, cached per feature shapes and device."""
@@ -110,16 +139,26 @@ def init_random_(model: CubeRCNN, generator: torch.Generator) -> CubeRCNN:
     return model
 
 
-def build_model(cfg, device="cpu", dtype=None, seed: int | None = None) -> CubeRCNN:
-    """Eval-mode `CubeRCNN` on `device`, in the config's TPU.COMPUTE_DTYPE
-    unless `dtype` is given, with channels-last convolutions. `seed` fills
-    it with `init_random_` weights; otherwise load a state dict."""
+def build_model(cfg, device="cuda", dtype=None, seed: int | None = None,
+                train: bool = False) -> CubeRCNN:
+    """`CubeRCNN` on `device` (the CUDA card unless the caller asks for the
+    CPU), computing in the config's TPU.COMPUTE_DTYPE unless `dtype` is
+    given, with channels-last convolutions. `train=False` gives an
+    eval-mode inference model, `train=True` a train-mode model with float32
+    parameters (see `CubeRCNN`). `seed` fills it with `init_random_`
+    weights; otherwise load a state dict. Raises if `device` is a CUDA
+    device and none is present: there is no silent fallback to the CPU."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("build_model targets the CUDA card, and torch.cuda.is_available() "
+                           "is false; pass device='cpu' to build on the CPU")
     scfg = StaticCfg(cfg.clone()) if hasattr(cfg, "clone") else cfg
     dtype = dtype or _DTYPES[scfg.TPU.COMPUTE_DTYPE]
-    model = CubeRCNN(scfg, dtype=dtype)
+    model = CubeRCNN(scfg, dtype=dtype, train=train)
     if seed is not None:
         init_random_(model, torch.Generator().manual_seed(seed))
-    return model.to(device=device, memory_format=torch.channels_last).eval()
+    model = model.to(device=device, memory_format=torch.channels_last)
+    return model.train() if train else model.eval()
 
 
 def preprocess(images_bgr: torch.Tensor, pixel_mean, pixel_std) -> torch.Tensor:
@@ -172,9 +211,7 @@ def inference(model: CubeRCNN, images, Ks, im_scales_ratio, hw=None, oracle=None
     cfg = model.cfg
     B, H, W, _ = images.shape
     C = cfg.MODEL.ROI_HEADS.NUM_CLASSES
-    feats = model.backbone(images.permute(0, 3, 1, 2).to(model.dtype))
-    # NHWC views of the channels-last maps: the pooler reads them in place
-    flist = [feats[f].permute(0, 2, 3, 1).contiguous() for f in FEATURE_NAMES]
+    feats, flist = model.features(images)
 
     if oracle is not None:
         o_boxes, o_classes, o_valid = oracle

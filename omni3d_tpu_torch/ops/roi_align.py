@@ -44,6 +44,9 @@ def assign_fpn_levels(boxes: torch.Tensor, min_level: int = 2, max_level: int = 
     area = ((boxes[..., 2] - boxes[..., 0]).clamp(min=0)
             * (boxes[..., 3] - boxes[..., 1]).clamp(min=0))
     lvl = torch.floor(canonical_level + torch.log2(torch.sqrt(area) / canonical_size + 1e-8))
+    # a NaN box (a diverging step, which the stabilizer skips) routes to the
+    # finest level: levels index the pyramid and must stay in range
+    lvl = torch.nan_to_num(lvl, nan=float(min_level))
     return lvl.clamp(min_level, max_level).to(torch.int32)
 
 
@@ -63,7 +66,7 @@ def fit_levels(boxes: torch.Tensor, strides, min_level: int = 2) -> torch.Tensor
 
     l_split_x = torch.maximum(need(sx, FIT_X2), need(sy, FIT_Y1))
     l_split_y = torch.maximum(need(sx, FIT_X1), need(sy, FIT_Y2))
-    fit = torch.minimum(l_split_x, l_split_y).to(torch.int32)
+    fit = torch.nan_to_num(torch.minimum(l_split_x, l_split_y), nan=0.0).to(torch.int32)
     return torch.maximum(lvl, fit).clamp(0, n_levels - 1).to(torch.int32)
 
 
@@ -118,13 +121,59 @@ def _bilinear_1d(pos, limit):
     (lo, hi, w_lo, w_hi, inside) with inside 0 outside [-1, limit]."""
     lim = limit[:, None]
     inside = (pos >= -1.0) & (pos <= lim.to(pos.dtype))
-    p = pos.clamp(min=0.0)
-    lo = torch.floor(p).long()
-    at_edge = lo >= lim - 1
-    lo = torch.where(at_edge, lim - 1, lo)
+    # as the kernel's fmaxf: a NaN position samples cell 0 at weight 0, and
+    # the edge test is taken in float, so no position indexes out of range
+    p = torch.nan_to_num(pos, nan=0.0).clamp(min=0.0)
+    fl = torch.floor(p)
+    at_edge = fl >= (lim - 1).to(p.dtype)
+    lo = torch.where(at_edge, lim - 1, fl.long())
     hi = torch.where(at_edge, lo, lo + 1)
-    frac = torch.where(at_edge, torch.zeros_like(p), p - lo.to(p.dtype))
+    frac = torch.where(at_edge, torch.zeros_like(p), p - fl)
     return lo, hi, 1.0 - frac, frac, inside.to(p.dtype)
+
+
+def _level_tables(level_shapes, B: int, strides, dev):
+    """Row offset of each level in one flat (rows, C) buffer holding every
+    level's (B, H_l, W_l) cells back to back, and per-level H, W, 1/stride."""
+    sizes = [B * h * w for h, w in level_shapes]
+    offsets = torch.tensor([sum(sizes[:i]) for i in range(len(sizes))], device=dev)
+    Hs = torch.tensor([h for h, _ in level_shapes], device=dev)
+    Ws = torch.tensor([w for _, w in level_shapes], device=dev)
+    scales = torch.tensor([1.0 / s for s in strides], dtype=torch.float32, device=dev)
+    return sizes, offsets, Hs, Ws, scales
+
+
+def _chunk_taps(boxes, levels, level_shapes, strides, out_size, sampling_ratio, C):
+    """Per chunk of boxes: (start, end, taps, wy, wx). `taps` lists the four
+    bilinear taps as (flat row index (n, PS, PS), tap weight (n, PS, PS)) into
+    the buffer of `_level_tables`; wy (n, PS) and wx (n, PS) are the
+    per-sample weights times the inside flags, PS = P x samples per bin."""
+    B, N = boxes.shape[:2]
+    P = out_size
+    S = sampling_ratio if sampling_ratio > 0 else ADAPTIVE_SMAX
+    dev = boxes.device
+    _, offsets, Hs, Ws, scales = _level_tables(level_shapes, B, strides, dev)
+    bx = boxes.reshape(-1, 4).float()
+    lv = levels.reshape(-1).long()
+    img = torch.arange(B, device=dev).repeat_interleave(N)
+    step = max(1, _CHUNK_BYTES // ((P * S) ** 2 * C * 4))
+    for s in range(0, B * N, step):
+        l = lv[s:s + step]
+        Hc, Wc = Hs[l], Ws[l]
+        base = offsets[l] + img[s:s + step] * Hc * Wc   # image's plane in its level
+        b = bx[s:s + step] * scales[l][:, None] - 0.5
+        ys, wys = _sample_grid_1d(b[:, 1], b[:, 3] - b[:, 1], P, sampling_ratio)
+        xs, wxs = _sample_grid_1d(b[:, 0], b[:, 2] - b[:, 0], P, sampling_ratio)
+        ylo, yhi, wy0, wy1, yin = _bilinear_1d(ys, Hc)
+        xlo, xhi, wx0, wx1, xin = _bilinear_1d(xs, Wc)
+
+        def tap(yi, xi, wgt_y, wgt_x):
+            idx = base[:, None, None] + yi[:, :, None] * Wc[:, None, None] + xi[:, None, :]
+            return idx, wgt_y[:, :, None] * wgt_x[:, None, :]
+
+        taps = (tap(ylo, xlo, wy0, wx0), tap(ylo, xhi, wy0, wx1),
+                tap(yhi, xlo, wy1, wx0), tap(yhi, xhi, wy1, wx1))
+        yield s, s + l.shape[0], taps, yin * wys, xin * wxs
 
 
 def multilevel_roi_align_plain(features, boxes, levels, strides, out_size: int = 7,
@@ -142,37 +191,49 @@ def multilevel_roi_align_plain(features, boxes, levels, strides, out_size: int =
     C = features[0].shape[-1]
     P = out_size
     S = sampling_ratio if sampling_ratio > 0 else ADAPTIVE_SMAX
-    dev = boxes.device
     flat = torch.cat([f.reshape(-1, C) for f in features], 0)
-    sizes = [f.shape[0] * f.shape[1] * f.shape[2] for f in features]
-    offsets = torch.tensor([sum(sizes[:i]) for i in range(len(sizes))], device=dev)
-    Hs = torch.tensor([f.shape[1] for f in features], device=dev)
-    Ws = torch.tensor([f.shape[2] for f in features], device=dev)
-    scales = torch.tensor([1.0 / s for s in strides], dtype=torch.float32, device=dev)
-
-    bx = boxes.reshape(-1, 4).float()
-    lv = levels.reshape(-1).long()
-    img = torch.arange(B, device=dev).repeat_interleave(N)
-    out = torch.empty((B * N, P, P, C), dtype=features[0].dtype, device=dev)
-    per_box = (P * S) ** 2 * C * 4
-    step = max(1, _CHUNK_BYTES // per_box)
-    for s in range(0, B * N, step):
-        l = lv[s:s + step]
-        Hc, Wc = Hs[l], Ws[l]
-        base = offsets[l] + img[s:s + step] * Hc * Wc   # image's plane in its level
-        b = bx[s:s + step] * scales[l][:, None] - 0.5
-        ys, wys = _sample_grid_1d(b[:, 1], b[:, 3] - b[:, 1], P, sampling_ratio)
-        xs, wxs = _sample_grid_1d(b[:, 0], b[:, 2] - b[:, 0], P, sampling_ratio)
-        ylo, yhi, wy0, wy1, yin = _bilinear_1d(ys, Hc)
-        xlo, xhi, wx0, wx1, xin = _bilinear_1d(xs, Wc)
-
-        def tap(yi, xi, wgt_y, wgt_x):
-            idx = base[:, None, None] + yi[:, :, None] * Wc[:, None, None] + xi[:, None, :]
-            vals = flat[idx.reshape(-1)].reshape(idx.shape + (C,)).float()
-            return vals * (wgt_y[:, :, None] * wgt_x[:, None, :])[..., None]
-
-        acc = (tap(ylo, xlo, wy0, wx0) + tap(ylo, xhi, wy0, wx1)
-               + tap(yhi, xlo, wy1, wx0) + tap(yhi, xhi, wy1, wx1))
-        acc = acc * ((yin * wys)[:, :, None] * (xin * wxs)[:, None, :])[..., None]
-        out[s:s + step] = acc.reshape(-1, P, S, P, S, C).sum(dim=(2, 4)).to(out.dtype)
+    shapes = [tuple(f.shape[1:3]) for f in features]
+    out = torch.empty((B * N, P, P, C), dtype=features[0].dtype, device=boxes.device)
+    for s, e, taps, wy, wx in _chunk_taps(boxes, levels, shapes, strides, P,
+                                          sampling_ratio, C):
+        acc = sum(flat[idx.reshape(-1)].reshape(idx.shape + (C,)).float() * w[..., None]
+                  for idx, w in taps)
+        acc = acc * (wy[:, :, None] * wx[:, None, :])[..., None]
+        out[s:e] = acc.reshape(-1, P, S, P, S, C).sum(dim=(2, 4)).to(out.dtype)
     return out.reshape(B, N, P, P, C)
+
+
+def multilevel_roi_align_plain_bwd(grad, boxes, levels, level_shapes, strides,
+                                   out_size: int = 7, sampling_ratio: int = 0,
+                                   dtype=torch.float32):
+    """Feature gradient of `multilevel_roi_align_plain`: its explicit
+    transpose for the same per-box levels (the CUDA backward kernel's
+    reference, and the path CPU tensors take).
+
+    Args:
+      grad: (B, N, P, P, C) cotangent of the pooled output.
+      boxes, levels, strides: as for the forward.
+      level_shapes: per-level (H_l, W_l) of the features.
+      dtype: the features' dtype.
+    Every sample adds g x its tap weights into one flat float32 buffer over
+    all levels and images (`index_add_`), using the forward's taps and
+    weights; the per-level (B, H_l, W_l, C) gradients are cast to `dtype`
+    once at the end, as the JAX package's `_fast_bwd` does.
+    """
+    B, N, P = grad.shape[:3]
+    C = grad.shape[-1]
+    S = sampling_ratio if sampling_ratio > 0 else ADAPTIVE_SMAX
+    sizes = _level_tables(level_shapes, B, strides, boxes.device)[0]
+    flat = torch.zeros((sum(sizes), C), dtype=torch.float32, device=boxes.device)
+    g = grad.reshape(B * N, P, P, C)
+    for s, e, taps, wy, wx in _chunk_taps(boxes, levels, level_shapes, strides, P,
+                                          sampling_ratio, C):
+        gs = g[s:e].float().repeat_interleave(S, 1).repeat_interleave(S, 2)
+        gs = gs * (wy[:, :, None] * wx[:, None, :])[..., None]
+        for idx, w in taps:
+            flat.index_add_(0, idx.reshape(-1), (gs * w[..., None]).reshape(-1, C))
+    grads, start = [], 0
+    for (h, w), n in zip(level_shapes, sizes):
+        grads.append(flat[start:start + n].reshape(B, h, w, C).to(dtype))
+        start += n
+    return grads

@@ -1,16 +1,20 @@
-"""Multilevel ROIAlignV2 forward: the hand-written CUDA kernel and its wrapper.
+"""Multilevel ROIAlignV2: the hand-written CUDA kernels and their wrapper.
 
-The kernel (`csrc/roi_align_fwd.cu`) replaces the JAX package's Pallas TPU
-kernels `roi_align_pallas.py::_pool_resident` and `::_pool_dma`. It is
-compiled with nvcc for sm_90a into a shared library with a plain C
-interface at first use, cached under `_build/` by a hash of the source and
-flags, and loaded with ctypes.
+The forward kernel (`csrc/roi_align_fwd.cu`) replaces the JAX package's
+Pallas TPU kernels `roi_align_pallas.py::_pool_resident` and `::_pool_dma`;
+the backward kernel (`csrc/roi_align_bwd.cu`) replaces
+`roi_align_bwd_pallas.py::roi_align_bwd_pallas`. Both share their sample
+geometry (`csrc/roi_align_common.cuh`). They are compiled with nvcc for
+sm_90a at first use, one nvcc per source started together, linked into one
+shared library with a plain C interface, cached under `_build/` by a hash of
+the sources, the header and the flags, and loaded with ctypes.
 
-`multilevel_roi_align` routes each box to a level in torch, then pools:
-tensors on the CPU take the plain PyTorch version (`ops/roi_align.py`);
-CUDA tensors launch the kernel, or the wrapper raises. There is no fallback
-from one to the other. `multilevel_roi_align.launches` counts kernel
-launches.
+`multilevel_roi_align` routes each box to a level in torch, then pools
+through `MultilevelROIAlign`, a `torch.autograd.Function`: tensors on the
+CPU take the plain PyTorch forward and backward (`ops/roi_align.py`); CUDA
+tensors launch the kernels, or the wrapper raises. There is no fallback
+from one to the other. `multilevel_roi_align.launches` and
+`multilevel_roi_align.bwd_launches` count kernel launches.
 """
 from __future__ import annotations
 
@@ -24,13 +28,17 @@ import time
 
 import torch
 
-from .roi_align import multilevel_roi_align_plain, route_levels
+from .roi_align import (multilevel_roi_align_plain, multilevel_roi_align_plain_bwd,
+                        route_levels)
 
 _PKG = pathlib.Path(__file__).resolve().parents[1]
-SOURCE = _PKG / "csrc" / "roi_align_fwd.cu"
+CSRC = _PKG / "csrc"
+SOURCES = (CSRC / "roi_align_fwd.cu", CSRC / "roi_align_bwd.cu")
+HEADERS = (CSRC / "roi_align_common.cuh",)
 BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-Xcompiler", "-fPIC")
+NVCC_FLAGS = ARCH_FLAGS + ("-Xptxas", "-v")
 MAX_LEVELS = 8
 _VEC = {torch.float32: 4, torch.bfloat16: 8}   # channels per 16-byte vector
 
@@ -48,24 +56,38 @@ def _nvcc() -> str:
 
 
 def build() -> tuple[pathlib.Path, float, str]:
-    """Compile the kernel library unless a build of this source and these
-    flags exists. Returns (library path, build seconds, compiler output)."""
-    src = SOURCE.read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib = BUILD_DIR / f"roi_align_fwd-{tag}.so"
+    """Compile the kernel library unless a build of these sources, header and
+    flags exists: one nvcc per source, started together, then one link.
+    Returns (library path, build seconds, compiler output)."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in SOURCES + HEADERS:
+        digest.update(f.name.encode() + f.read_bytes())
+    lib = BUILD_DIR / f"roi_align-{digest.hexdigest()[:16]}.so"
     if lib.exists():
         return lib, 0.0, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+    tag = f"{lib.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in SOURCES]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                          capture_output=True, text=True, check=False)
-    seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+    try:
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(src)],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for src, o in zip(SOURCES, objs)]
+        log = "".join(p.communicate()[0] for p in procs)
+        if any(p.returncode for p in procs):
+            raise RuntimeError(f"nvcc failed:\n{log}")
+        tmp = lib.with_name(f"{tag}.so.tmp")
+        link = subprocess.run([nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)],
+                              capture_output=True, text=True, check=False)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n"
+                               f"{link.stdout}{link.stderr}")
+    finally:
+        for o in objs:
+            o.unlink(missing_ok=True)
     os.replace(tmp, lib)   # atomic: a concurrent process never loads a partial file
-    return lib, seconds, log
+    return lib, time.perf_counter() - t0, log
 
 
 def _library():
@@ -74,10 +96,15 @@ def _library():
         path, _, _ = build()
         lib = ctypes.CDLL(str(path))
         p, i = ctypes.c_void_p, ctypes.c_int
+        ints = ctypes.POINTER(i)
+        floats = ctypes.POINTER(ctypes.c_float)
         lib.roi_align_fwd.argtypes = [
-            ctypes.POINTER(p), ctypes.POINTER(i), ctypes.POINTER(i),
-            ctypes.POINTER(ctypes.c_float), i, p, p, p, i, i, i, i, i, p, p]
+            ctypes.POINTER(p), ints, ints, floats, i, p, p, p, i, i, i, i, i, p, p]
         lib.roi_align_fwd.restype = i
+        lib.roi_align_bwd.argtypes = [
+            ctypes.POINTER(ctypes.c_longlong), ints, ints, floats, i, p, p, p, i, p,
+            i, i, i, i, p, p]
+        lib.roi_align_bwd.restype = i
         _lib = lib
     return _lib
 
@@ -107,36 +134,22 @@ def _check(features, boxes, strides, out_size, sampling_ratio):
         raise ValueError(f"bad out_size {out_size} / sampling_ratio {sampling_ratio}")
 
 
-def multilevel_roi_align(features, boxes, strides, out_size: int = 7,
-                         sampling_ratio: int = 0, min_level: int = 2,
-                         routing: str = "canonical") -> torch.Tensor:
-    """ROIAlignV2 over an FPN pyramid with per-box level routing.
+def _box_tables(boxes, levels):
+    """Flat boxes, int32 levels and image indices of (B, N) boxes."""
+    B, N = boxes.shape[:2]
+    images = torch.arange(B, dtype=torch.int32, device=boxes.device).repeat_interleave(N)
+    return (boxes.reshape(B * N, 4).contiguous(),
+            levels.reshape(B * N).to(torch.int32).contiguous(), images)
 
-    Args:
-      features: list of (B, H_l, W_l, C) contiguous NHWC maps, float32 or
-        bfloat16, finest level (`min_level`) first.
-      boxes: (B, N, 4) float32 XYXY in image coordinates.
-      strides: per-level strides.
-      routing: "canonical" (detectron2 levels) or "fit" (the JAX TPU
-        kernel's bumped levels); see `ops.roi_align.route_levels`.
-    Returns (B, N, out_size, out_size, C) in the features' dtype.
-    """
-    levels = route_levels(boxes, strides, min_level, routing)
-    if boxes.device.type == "cpu" and all(f.device.type == "cpu" for f in features):
-        return multilevel_roi_align_plain(features, boxes, levels, strides, out_size,
-                                          sampling_ratio)
-    if boxes.device.type != "cuda":
-        raise ValueError(f"multilevel_roi_align runs on CPU or CUDA tensors, got {boxes.device}")
-    _check(features, boxes, strides, out_size, sampling_ratio)
+
+def _forward_kernel(features, boxes, levels, strides, out_size, sampling_ratio):
     B, N = boxes.shape[:2]
     C = features[0].shape[-1]
     dtype = features[0].dtype
     out = torch.empty((B, N, out_size, out_size, C), dtype=dtype, device=boxes.device)
     if B * N == 0:
         return out
-    boxes_flat = boxes.reshape(B * N, 4).contiguous()
-    levels_flat = levels.reshape(B * N).to(torch.int32).contiguous()
-    images = torch.arange(B, dtype=torch.int32, device=boxes.device).repeat_interleave(N)
+    boxes_flat, levels_flat, images = _box_tables(boxes, levels)
     L = len(features)
     ptrs = (ctypes.c_void_p * L)(*[f.data_ptr() for f in features])
     hs = (ctypes.c_int * L)(*[f.shape[1] for f in features])
@@ -154,4 +167,100 @@ def multilevel_roi_align(features, boxes, strides, out_size: int = 7,
     return out
 
 
+def _backward_kernel(grad, boxes, levels, level_shapes, strides, out_size,
+                     sampling_ratio, dtype):
+    """Per-level feature gradients from the backward kernel: it adds into one
+    zeroed float32 accumulator over every level and image, which is split
+    into (B, H_l, W_l, C) views and cast to the features' dtype (for
+    float32 features the views are the result)."""
+    B, N = boxes.shape[:2]
+    C = grad.shape[-1]
+    if grad.dtype not in _VEC or C % _VEC[grad.dtype]:
+        raise ValueError(f"grad must be float32 or bfloat16 with C a multiple of "
+                         f"{_VEC.get(grad.dtype)}, got {grad.dtype} C={C}")
+    grad = grad.contiguous()
+    sizes = [B * h * w * C for h, w in level_shapes]
+    acc = torch.zeros(sum(sizes), dtype=torch.float32, device=boxes.device)
+    if B * N:
+        boxes_flat, levels_flat, images = _box_tables(boxes, levels)
+        L = len(level_shapes)
+        offsets = (ctypes.c_longlong * L)(*[sum(sizes[:i]) for i in range(L)])
+        hs = (ctypes.c_int * L)(*[h for h, _ in level_shapes])
+        ws = (ctypes.c_int * L)(*[w for _, w in level_shapes])
+        scales = (ctypes.c_float * L)(*[1.0 / s for s in strides])
+        with torch.cuda.device(boxes.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            err = _library().roi_align_bwd(
+                offsets, hs, ws, scales, L, boxes_flat.data_ptr(), levels_flat.data_ptr(),
+                images.data_ptr(), B * N, grad.data_ptr(), C, out_size, sampling_ratio,
+                int(grad.dtype == torch.bfloat16), acc.data_ptr(), stream)
+        if err != 0:
+            raise RuntimeError(f"roi_align_bwd launch failed: CUDA error {err}")
+        multilevel_roi_align.bwd_launches += 1
+    grads, start = [], 0
+    for (h, w), n in zip(level_shapes, sizes):
+        grads.append(acc[start:start + n].view(B, h, w, C).to(dtype))
+        start += n
+    return grads
+
+
+class MultilevelROIAlign(torch.autograd.Function):
+    """Pooling with the kernels' (or, on the CPU, the plain versions')
+    backward. Saves the boxes and the routed levels, so the backward
+    transposes exactly the map the forward applied; boxes get no gradient,
+    as in torchvision and the JAX package's `multilevel_roi_align_fast`."""
+
+    @staticmethod
+    def forward(ctx, boxes, levels, strides, out_size, sampling_ratio, *features):
+        ctx.save_for_backward(boxes, levels)
+        ctx.geom = (tuple(tuple(f.shape[1:3]) for f in features), tuple(strides),
+                    out_size, sampling_ratio, features[0].dtype)
+        if boxes.device.type == "cpu":
+            return multilevel_roi_align_plain(features, boxes, levels, strides, out_size,
+                                              sampling_ratio)
+        return _forward_kernel(features, boxes, levels, strides, out_size, sampling_ratio)
+
+    @staticmethod
+    def backward(ctx, grad):
+        boxes, levels = ctx.saved_tensors
+        shapes, strides, out_size, sampling_ratio, dtype = ctx.geom
+        none = (None,) * 5
+        if not any(ctx.needs_input_grad[5:]):
+            return none + (None,) * len(shapes)
+        if boxes.device.type == "cpu":
+            grads = multilevel_roi_align_plain_bwd(grad, boxes, levels, shapes, strides,
+                                                   out_size, sampling_ratio, dtype)
+        else:
+            grads = _backward_kernel(grad, boxes, levels, shapes, strides, out_size,
+                                     sampling_ratio, dtype)
+        return none + tuple(grads)
+
+
+def multilevel_roi_align(features, boxes, strides, out_size: int = 7,
+                         sampling_ratio: int = 0, min_level: int = 2,
+                         routing: str = "canonical") -> torch.Tensor:
+    """ROIAlignV2 over an FPN pyramid with per-box level routing;
+    differentiable in the features.
+
+    Args:
+      features: list of (B, H_l, W_l, C) contiguous NHWC maps, float32 or
+        bfloat16, finest level (`min_level`) first.
+      boxes: (B, N, 4) float32 XYXY in image coordinates.
+      strides: per-level strides.
+      routing: "canonical" (detectron2 levels) or "fit" (the JAX TPU
+        kernel's bumped levels); see `ops.roi_align.route_levels`. The
+        backward uses the levels the forward used.
+    Returns (B, N, out_size, out_size, C) in the features' dtype.
+    """
+    levels = route_levels(boxes, strides, min_level, routing)
+    if not (boxes.device.type == "cpu" and all(f.device.type == "cpu" for f in features)):
+        if boxes.device.type != "cuda":
+            raise ValueError(f"multilevel_roi_align runs on CPU or CUDA tensors, "
+                             f"got {boxes.device}")
+        _check(features, boxes, strides, out_size, sampling_ratio)
+    return MultilevelROIAlign.apply(boxes, levels, tuple(strides), out_size,
+                                    sampling_ratio, *features)
+
+
 multilevel_roi_align.launches = 0
+multilevel_roi_align.bwd_launches = 0

@@ -18,18 +18,71 @@ def area(boxes: torch.Tensor) -> torch.Tensor:
         boxes[..., 3] - boxes[..., 1]).clamp(min=0)
 
 
-def pairwise_iou(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """IoU between all pairs; (..., M, 4) x (..., N, 4) -> (..., M, N).
-    Zero-area pairs -> 0."""
+def pairwise_intersection(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Intersection areas between all pairs; (..., M, 4) x (..., N, 4) ->
+    (..., M, N)."""
     ix1 = torch.maximum(a[..., :, None, 0], b[..., None, :, 0])
     iy1 = torch.maximum(a[..., :, None, 1], b[..., None, :, 1])
     ix2 = torch.minimum(a[..., :, None, 2], b[..., None, :, 2])
     iy2 = torch.minimum(a[..., :, None, 3], b[..., None, :, 3])
-    inter = (ix2 - ix1).clamp(min=0) * (iy2 - iy1).clamp(min=0)
-    union = area(a)[..., :, None] + area(b)[..., None, :] - inter
-    pos = union > 0
-    return torch.where(pos, inter / torch.where(pos, union, torch.ones_like(union)),
-                       torch.zeros_like(union))
+    return (ix2 - ix1).clamp(min=0) * (iy2 - iy1).clamp(min=0)
+
+
+def _safe_div(num, den):
+    """num / den where den > 0, else 0."""
+    pos = den > 0
+    return torch.where(pos, num / torch.where(pos, den, torch.ones_like(den)),
+                       torch.zeros_like(num))
+
+
+def iou_from_intersection(inter: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """IoU of all pairs from their (..., M, N) intersections; zero-area
+    pairs -> 0."""
+    return _safe_div(inter, area(a)[..., :, None] + area(b)[..., None, :] - inter)
+
+
+def pairwise_iou(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """IoU between all pairs; (..., M, 4) x (..., N, 4) -> (..., M, N).
+    Zero-area pairs -> 0."""
+    return iou_from_intersection(pairwise_intersection(a, b), a, b)
+
+
+def pairwise_ioa(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Intersection over the area of `b` (how much of b lies inside a);
+    (..., M, 4) x (..., N, 4) -> (..., M, N), detectron2 pairwise_ioa."""
+    inter = pairwise_intersection(a, b)
+    return _safe_div(inter, area(b)[..., None, :].expand_as(inter))
+
+
+def matched_iou(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Elementwise IoU of matched box lists, both (..., 4)."""
+    lt = torch.maximum(a[..., :2], b[..., :2])
+    rb = torch.minimum(a[..., 2:], b[..., 2:])
+    wh = (rb - lt).clamp(min=0)
+    inter = wh[..., 0] * wh[..., 1]
+    return _safe_div(inter, area(a) + area(b) - inter)
+
+
+def encode_deltas(src: torch.Tensor, target: torch.Tensor,
+                  weights=(1.0, 1.0, 1.0, 1.0)) -> torch.Tensor:
+    """Box -> regression deltas (dx, dy, dw, dh), detectron2
+    Box2BoxTransform.get_deltas semantics."""
+    sw = src[..., 2] - src[..., 0]
+    sh = src[..., 3] - src[..., 1]
+    scx = src[..., 0] + 0.5 * sw
+    scy = src[..., 1] + 0.5 * sh
+    tw = target[..., 2] - target[..., 0]
+    th = target[..., 3] - target[..., 1]
+    tcx = target[..., 0] + 0.5 * tw
+    tcy = target[..., 1] + 0.5 * th
+    wx, wy, ww, wh = weights
+    sw = torch.where(sw <= 0, torch.full_like(sw, 1e-6), sw)
+    sh = torch.where(sh <= 0, torch.full_like(sh, 1e-6), sh)
+    dx = wx * (tcx - scx) / sw
+    dy = wy * (tcy - scy) / sh
+    dw = ww * torch.log(tw.clamp(min=1e-6) / sw)
+    dh = wh * torch.log(th.clamp(min=1e-6) / sh)
+    return torch.stack([dx, dy, dw, dh], dim=-1)
 
 
 def decode_deltas(deltas: torch.Tensor, boxes: torch.Tensor,

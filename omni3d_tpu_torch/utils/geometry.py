@@ -62,6 +62,14 @@ def _allocentric_M(K: torch.Tensor, u: torch.Tensor, v: torch.Tensor):
     return axis_angle_to_matrix(angle[..., None] * axis), angle
 
 
+def R_to_allocentric(K, R, u, v):
+    """Egocentric -> allocentric pose about the (u, v) viewing ray
+    (reference math_util.py:595-648): M^T @ R when the ray angle is > 0."""
+    M, angle = _allocentric_M(K, u, v)
+    R_view = torch.einsum("...ji,...jk->...ik", M, R)
+    return torch.where(angle[..., None, None] > 0, R_view, R)
+
+
 def R_from_allocentric(K, R_view, u, v):
     """Allocentric -> egocentric pose (reference math_util.py:651-705)."""
     M, angle = _allocentric_M(K, u, v)
@@ -125,3 +133,11 @@ def euler_angles_to_matrix(euler: torch.Tensor, convention: str = "XYZ") -> torc
 def scaled_sigmoid(vals, lo=0.0, hi=1.0):
     """Sigmoid rescaled to (lo, hi) (reference math_util.py:969-978)."""
     return lo + (hi - lo) * torch.sigmoid(vals)
+
+
+def so3_relative_angle(R1, R2, eps: float = 1e-4, cos_angle: bool = False):
+    """Relative rotation angle between two rotations (pytorch3d
+    so3_relative_angle); cos(theta) with cos_angle=True."""
+    trace = torch.einsum("...ij,...ij->...", R1, R2)   # trace(R1 @ R2^T)
+    cos = ((trace - 1.0) * 0.5).clamp(-1.0 + eps, 1.0 - eps)
+    return cos if cos_angle else torch.arccos(cos)

@@ -55,7 +55,7 @@ def test_round_trip_bit_exact(setup):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_port_model_loads_strict(setup, dtype):
     tcfg, _, sd = setup
-    model = build_model(tcfg, dtype=dtype)
+    model = build_model(tcfg, device="cpu", dtype=dtype)
     own = model.state_dict()
     assert set(own) == set(sd)
     for k, v in sd.items():
@@ -86,4 +86,4 @@ def test_unported_backbones_raise(name):
     cfg = get_default_cfg()
     cfg.merge_from_file(str(pathlib.Path(__file__).resolve().parents[1] / "configs" / f"{name}.yaml"))
     with pytest.raises(NotImplementedError):
-        build_model(cfg)
+        build_model(cfg, device="cpu")

@@ -1,4 +1,5 @@
-"""The CUDA ROIAlign kernel vs its plain PyTorch version, on the card.
+"""The CUDA ROIAlign kernels (forward and backward) vs their plain PyTorch
+versions, on the card.
 
 These tests need a CUDA device and skip without one. They import no JAX, so
 they run on a machine without it; there, skip tests/conftest.py (it imports
@@ -9,7 +10,8 @@ JAX):
 import pytest
 import torch
 
-from omni3d_tpu_torch.ops.roi_align import multilevel_roi_align_plain, route_levels
+from omni3d_tpu_torch.ops.roi_align import (multilevel_roi_align_plain,
+                                             multilevel_roi_align_plain_bwd, route_levels)
 from omni3d_tpu_torch.ops.roi_align_cuda import multilevel_roi_align
 
 STRIDES = (4, 8, 16, 32, 64)
@@ -70,3 +72,53 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(device):
         multilevel_roi_align(feats, boxes.double(), STRIDES)
     with pytest.raises(ValueError):
         multilevel_roi_align(feats, boxes.cpu(), STRIDES)
+
+
+def bf16_ulp(x):
+    """One bfloat16 ULP at the magnitude of each element of x (float32)."""
+    return torch.exp2(torch.floor(torch.log2(x.abs().clamp(min=1e-30))) - 7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("routing", ["canonical", "fit"])
+@pytest.mark.parametrize("sampling_ratio", [0, 2])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_bwd_kernel_matches_plain(device, dtype, sampling_ratio, routing):
+    """Through loss.backward(): one backward launch; f32 within
+    1e-5 * max|plain| + 1e-6 (atomics add in another order on every run);
+    bf16 within one output ULP of the plain result after the same single
+    cast, plus that f32 slack."""
+    feats, boxes = _case(device, dtype)
+    feats = [f.requires_grad_(True) for f in feats]
+    g = torch.randn((2, boxes.shape[1], 7, 7, feats[0].shape[-1]),
+                    generator=torch.Generator().manual_seed(1)).to(device, dtype)
+    before = multilevel_roi_align.bwd_launches
+    out = multilevel_roi_align(feats, boxes, STRIDES, 7, sampling_ratio, routing=routing)
+    out.backward(g)
+    torch.cuda.synchronize()
+    assert multilevel_roi_align.bwd_launches == before + 1
+    levels = route_levels(boxes, STRIDES, 2, routing)
+    want = multilevel_roi_align_plain_bwd(g, boxes, levels, [f.shape[1:3] for f in feats],
+                                          STRIDES, 7, sampling_ratio, dtype)
+    scale = max(float(w.float().abs().max()) for w in want)
+    for f, w in zip(feats, want):
+        assert f.grad.dtype == dtype and f.grad.shape == f.shape
+        err = (f.grad.float() - w.float()).abs()
+        tol = 1e-5 * scale + 1e-6
+        if dtype == torch.bfloat16:
+            tol = tol + bf16_ulp(w.float())
+        assert bool((err <= tol).all()), float(err.max())
+
+
+@pytest.mark.cuda
+def test_bwd_kernel_is_the_transpose_of_the_fwd_kernel(device):
+    """<g, fwd(f)> = <bwd(g), f> in float32 at rtol 1e-5, both kernels."""
+    feats, boxes = _case(device, torch.float32)
+    feats = [f.requires_grad_(True) for f in feats]
+    g = torch.randn((2, boxes.shape[1], 7, 7, feats[0].shape[-1]),
+                    generator=torch.Generator().manual_seed(2)).to(device)
+    out = multilevel_roi_align(feats, boxes, STRIDES, 7, 0)
+    out.backward(g)
+    lhs = float((g.double() * out.detach().double()).sum())
+    rhs = float(sum((f.grad.double() * f.detach().double()).sum() for f in feats))
+    assert abs(lhs - rhs) <= 1e-5 * abs(lhs)
