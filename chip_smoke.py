@@ -18,9 +18,9 @@ Phases (each raises on failure):
   4. the backward kernel vs the plain backward at the training path's
      shapes (B = 2, N = 640 per image), both routings, sampling_ratio 0 and
      2, float32 and bfloat16, the transpose identity, with times (the
-     kernel as its wrapper: zeroed accumulator, launch, cast); both kernels
-     held against their plain versions and timed at the bf16 training
-     batch (B = 32, N = 640);
+     kernel as its wrapper: torch.empty outputs, launch); both kernels held
+     against their plain versions and timed at the bf16 training batch
+     (B = 32, N = 640), and two backward calls there held bit-equal;
   5. training main path: full-width DLA34-FPN training steps at 512 px on
      synthetic batches (float32 TF32 off at batch 8, bfloat16 at batch 32):
      exactly one forward and one backward launch per step, finite losses,
@@ -90,25 +90,41 @@ def bound(bytes_moved, ops):
 
 
 def pool_work(boxes, levels, shapes, strides, sampling_ratio, C):
-    """What this run's data needs of one pooling (or its transpose): the
-    distinct pyramid cells with a nonzero tap weight, and the float32
-    operations: one fused multiply-add (2 operations) per channel for each
-    tap of nonzero weight. The sample weight folds into the four tap
-    weights, which all C channels share."""
+    """What this run's data needs of one pooling and of its transpose:
+    (distinct pyramid cells with a nonzero tap weight, forward operations,
+    backward operations). Operations are float32, 2 per fused multiply-add,
+    the fewer of two counts: one FMA per channel for each tap of nonzero
+    weight (the sample weight folds into the four tap weights, which all C
+    channels share), or the banded form's FMAs per channel over the boxes'
+    per-axis bands (`ops.roi_align.axis_bands`): forward count_y x nnz(Ax) +
+    P x nnz(Ay), backward P x nnz(Ax) + nnz(Ay) x count_x."""
     import torch
-    from omni3d_tpu_torch.ops.roi_align import _chunk_taps
+    from omni3d_tpu_torch.ops.roi_align import _chunk_taps, axis_bands
     B = boxes.shape[0]
+    P = 7
     touched = torch.zeros(sum(B * h * w for h, w in shapes), dtype=torch.bool,
                           device=boxes.device)
     taps_live = 0
-    for _, _, taps, wy, wx in _chunk_taps(boxes, levels, shapes, strides, 7,
+    for _, _, taps, wy, wx in _chunk_taps(boxes, levels, shapes, strides, P,
                                           sampling_ratio, C):
         live = (wy[:, :, None] * wx[:, None, :]) != 0
         for idx, w in taps:
             nz = live & (w != 0)
             taps_live += int(nz.sum())
             touched[idx[nz]] = True
-    return int(touched.sum()), taps_live * C * 2
+    lv = levels.reshape(-1).long()
+    hs = torch.tensor([h for h, _ in shapes], device=boxes.device)[lv]
+    ws = torch.tensor([w for _, w in shapes], device=boxes.device)[lv]
+    scale = torch.tensor([1.0 / s for s in strides], dtype=torch.float32,
+                         device=boxes.device)[lv]
+    b = boxes.reshape(-1, 4) * scale[:, None] - 0.5
+    _, ny, ay = axis_bands(b[:, 1], b[:, 3] - b[:, 1], hs, P, sampling_ratio)
+    _, nx, ax = axis_bands(b[:, 0], b[:, 2] - b[:, 0], ws, P, sampling_ratio)
+    nnz_y, nnz_x = (ay != 0).sum((1, 2)), (ax != 0).sum((1, 2))
+    live = (ny > 0) & (nx > 0)
+    fwd = int(((ny * nnz_x + P * nnz_y) * live).sum())
+    bwd = int(((P * nnz_x + nnz_y * nx) * live).sum())
+    return int(touched.sum()), min(taps_live, fwd) * C * 2, min(taps_live, bwd) * C * 2
 
 
 def make_boxes(n, gen, device):
@@ -170,8 +186,9 @@ def kernel_vs_plain(device):
                     worst = max(worst, err)
                     if (n, routing, dtype, S) == (POOLER_BOXES[0], "canonical", torch.bfloat16, 0):
                         main_case = row
-                        cells, ops = pool_work(boxes, levels, [f.shape[1:3] for f in feats],
-                                               STRIDES, S, CHANNELS)
+                        cells, ops, _ = pool_work(boxes, levels,
+                                                  [f.shape[1:3] for f in feats], STRIDES, S,
+                                                  CHANNELS)
                         moved = (cells * CHANNELS * 2 + boxes.numel() * 4 + levels.numel() * 4
                                  + want.numel() * 2)
                         row["bound_ms"], row["bound_by"] = bound(moved, ops)
@@ -269,9 +286,9 @@ def time_kernels_at_train_shape(device, bs=32):
     """Both kernels and both plain versions at the bf16 training batch: B =
     bs images, N = 640 RoIs each, canonical routing, adaptive sampling, C =
     256 bf16; each kernel's output held against its plain version's with the
-    tolerances of phases 2 and 4; CUDA events. The backward is timed as its
-    wrapper (_backward_kernel: zeroed f32 accumulator, launch, cast to
-    bf16)."""
+    tolerances of phases 2 and 4, and two backward calls held bit-equal;
+    CUDA events. The backward is timed as its wrapper (_backward_kernel:
+    torch.empty outputs, launch)."""
     import torch
     from omni3d_tpu_torch.ops import roi_align_cuda as rac
     from omni3d_tpu_torch.ops.roi_align import (multilevel_roi_align_plain,
@@ -290,7 +307,11 @@ def time_kernels_at_train_shape(device, bs=32):
                                                        torch.bfloat16)
     fwd = lambda: rac._forward_kernel(feats, boxes, levels, STRIDES, 7, 0)
     plain_fwd = lambda: multilevel_roi_align_plain(feats, boxes, levels, STRIDES, 7, 0)
-    bwd_err, bwd_tol = bwd_agreement(bwd(), plain_bwd(), f"bf16 B={bs} x N={TRAIN_ROIS}")
+    first = bwd()
+    bwd_err, bwd_tol = bwd_agreement(first, plain_bwd(), f"bf16 B={bs} x N={TRAIN_ROIS}")
+    if not all(torch.equal(a, b) for a, b in zip(first, bwd())):
+        raise AssertionError("two backward calls on the same inputs differ")
+    del first
     fwd_err, fwd_tol, fwd_frac, ok = fwd_agreement(fwd(), plain_fwd())
     if not ok:
         raise AssertionError(f"forward kernel disagrees with plain at bf16 B={bs} x "
@@ -300,16 +321,16 @@ def time_kernels_at_train_shape(device, bs=32):
            "bwd_ms": cuda_ms(bwd), "fwd_ms": cuda_ms(fwd),
            "bwd_plain_ms": cuda_ms(plain_bwd, iters=3, warmup=1),
            "fwd_plain_ms": cuda_ms(plain_fwd, iters=3, warmup=1)}
-    cells, ops = pool_work(boxes, levels, shapes, STRIDES, 0, CHANNELS)
+    cells, fwd_ops, bwd_ops = pool_work(boxes, levels, shapes, STRIDES, 0, CHANNELS)
     pyramid = sum(bs * h * w for h, w in shapes) * CHANNELS * 2
     small = boxes.numel() * 4 + levels.numel() * 4
     # backward: g read once, every level's bf16 gradient written once
-    res["bwd_bound_ms"], res["bwd_bound_by"] = bound(g.numel() * 2 + pyramid + small, ops)
+    res["bwd_bound_ms"], res["bwd_bound_by"] = bound(g.numel() * 2 + pyramid + small, bwd_ops)
     # forward: the touched cells read once, the pooled RoIs written once
     res["fwd_bound_ms"], res["fwd_bound_by"] = bound(cells * CHANNELS * 2 + small
-                                                     + g.numel() * 2, ops)
-    res.update(boxes=bs * TRAIN_ROIS, touched_cells=cells, ops=ops)
-    print(f"  bf16 B={bs} x N={TRAIN_ROIS}: backward max|k-p|={bwd_err:.3e} (f32 tol "
+                                                     + g.numel() * 2, fwd_ops)
+    res.update(boxes=bs * TRAIN_ROIS, touched_cells=cells, fwd_ops=fwd_ops, bwd_ops=bwd_ops)
+    print(f"  bf16 B={bs} x N={TRAIN_ROIS}: backward bit-equal over two calls, max|k-p|={bwd_err:.3e} (f32 tol "
           f"{bwd_tol:.1e} + 1 ULP), kernel {res['bwd_ms']:.3f} ms (bound "
           f"{res['bwd_bound_ms']:.4f} ms by {res['bwd_bound_by']}), plain "
           f"{res['bwd_plain_ms']:.3f} ms; forward max|k-p|={fwd_err:.3e} (tol {fwd_tol:.1e}, "
@@ -647,7 +668,8 @@ def main():
         "bound_ms": at_train["bwd_bound_ms"], "bound_by": at_train["bwd_bound_by"],
         "library_ms": None,
         "timed_case": f"N={TRAIN_ROIS} per image x B=32, canonical, bfloat16, "
-                      "sampling_ratio 0 (wrapper: zeroed f32 accumulator, launch, cast)",
+                      "sampling_ratio 0 (wrapper: torch.empty outputs, launch)",
+        "bit_reproducible": True,
     }]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

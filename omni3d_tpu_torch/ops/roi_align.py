@@ -31,6 +31,10 @@ FIT_Y2 = 71
 
 ROUTINGS = ("canonical", "fit")
 
+# cells per axis of the backward kernel's gradient tile (kTile of
+# csrc/roi_align_bwd.cu)
+GRAD_TILE = 16
+
 # bound on one gathered-sample buffer of the plain version (bytes per chunk
 # of boxes); four such buffers are live at once
 _CHUNK_BYTES = 1 << 28
@@ -130,6 +134,43 @@ def _bilinear_1d(pos, limit):
     hi = torch.where(at_edge, lo, lo + 1)
     frac = torch.where(at_edge, torch.zeros_like(p), p - fl)
     return lo, hi, 1.0 - frac, frac, inside.to(p.dtype)
+
+
+def axis_bands(lo, size, limit, out_size: int, sampling_ratio: int):
+    """Per-axis banded weights of boxes, as the CUDA kernels build them
+    (`csrc/roi_align_common.cuh`); the card never calls this, it is the CPU
+    mirror of the kernels' geometry.
+
+    lo, size (n,) f32 are the boxes' start and extent along one axis in level
+    cells (after the -0.5 shift), limit (n,) int64 the axis length. Returns
+    (first (n,), count (n,), weights (n, P, F)): the band is the cells
+    [first, first + count) between the smallest and largest tap of nonzero
+    weight (count 0, first 0 when there is none, as for a NaN box), and
+    weights[:, p, j] = A[p, first + j], the sum over the samples of bin p of
+    sample weight x inside flag x tap weight at that cell; F = max(count, 1),
+    zero past each box's count. Pooling is Ay F Ax^T, its transpose Ay^T G
+    Ax; the backward kernel takes a band's columns over each `GRAD_TILE`
+    tile of its level.
+    """
+    P = out_size
+    pos, w = _sample_grid_1d(lo, size, P, sampling_ratio)
+    t_lo, t_hi, w_lo, w_hi, inside = _bilinear_1d(pos, limit)
+    idx = torch.stack([t_lo, t_hi], -1)                              # (n, P*S, 2)
+    wt = w[..., None] * (torch.stack([w_lo, w_hi], -1) * inside[..., None])
+    live = wt != 0
+    first = torch.where(live, idx, torch.iinfo(torch.int64).max).amin((1, 2))
+    last = torch.where(live, idx, -1).amax((1, 2))
+    count = (last - first + 1).clamp(min=0)
+    first = torch.where(count > 0, first, 0)
+    n = lo.shape[0]
+    F = max(1, int(count.max())) if n else 1
+    S = pos.shape[1] // P
+    col = (idx - first[:, None, None]).clamp(0, F - 1)
+    bins = torch.arange(P, device=lo.device).repeat_interleave(S)[None, :, None]
+    weights = torch.zeros((n, P * F), dtype=wt.dtype, device=lo.device)
+    weights.scatter_add_(1, (bins * F + col).reshape(n, -1),
+                         torch.where(live, wt, torch.zeros_like(wt)).reshape(n, -1))
+    return first, count, weights.reshape(n, P, F)
 
 
 def _level_tables(level_shapes, B: int, strides, dev):

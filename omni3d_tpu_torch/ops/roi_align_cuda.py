@@ -3,11 +3,19 @@
 The forward kernel (`csrc/roi_align_fwd.cu`) replaces the JAX package's
 Pallas TPU kernels `roi_align_pallas.py::_pool_resident` and `::_pool_dma`;
 the backward kernel (`csrc/roi_align_bwd.cu`) replaces
-`roi_align_bwd_pallas.py::roi_align_bwd_pallas`. Both share their sample
-geometry (`csrc/roi_align_common.cuh`). They are compiled with nvcc for
-sm_90a at first use, one nvcc per source started together, linked into one
-shared library with a plain C interface, cached under `_build/` by a hash of
-the sources, the header and the flags, and loaded with ctypes.
+`roi_align_bwd_pallas.py::roi_align_bwd_pallas`. Both are bound by bytes on
+the H100 and pool through per-axis banded weights that a block builds once
+per box in shared memory (`csrc/roi_align_common.cuh`;
+`ops.roi_align.axis_bands` is their CPU mirror). The forward is
+box-stationary: each bin reads the cells of its band product once, with no
+barrier after the bands are built. The backward is output-stationary: a
+block owns a tile of one image-level's gradient, walks the boxes that touch
+it and writes the tile once, with no atomics, so it is bit-reproducible run
+to run and its outputs need no zeroing and no cast. The kernels are
+compiled with nvcc for sm_90a at first use, one nvcc per source started
+together, linked into one shared library with a plain C interface, cached
+under `_build/` by a hash of the sources, the header and the flags, and
+loaded with ctypes.
 
 `multilevel_roi_align` routes each box to a level in torch, then pools
 through `MultilevelROIAlign`, a `torch.autograd.Function`: tensors on the
@@ -28,8 +36,8 @@ import time
 
 import torch
 
-from .roi_align import (multilevel_roi_align_plain, multilevel_roi_align_plain_bwd,
-                        route_levels)
+from .roi_align import (ADAPTIVE_SMAX, multilevel_roi_align_plain,
+                        multilevel_roi_align_plain_bwd, route_levels)
 
 _PKG = pathlib.Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
@@ -40,6 +48,7 @@ ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 NVCC_FLAGS = ARCH_FLAGS + ("-Xptxas", "-v")
 MAX_LEVELS = 8
+MAX_BINS = 8                     # out_size bound of the kernels (kMaxBins)
 _VEC = {torch.float32: 4, torch.bfloat16: 8}   # channels per 16-byte vector
 
 _lib = None
@@ -102,8 +111,7 @@ def _library():
             ctypes.POINTER(p), ints, ints, floats, i, p, p, p, i, i, i, i, i, p, p]
         lib.roi_align_fwd.restype = i
         lib.roi_align_bwd.argtypes = [
-            ctypes.POINTER(ctypes.c_longlong), ints, ints, floats, i, p, p, p, i, p,
-            i, i, i, i, p, p]
+            ctypes.POINTER(p), ints, ints, floats, i, p, p, i, i, p, i, i, i, i, p]
         lib.roi_align_bwd.restype = i
         _lib = lib
     return _lib
@@ -130,16 +138,19 @@ def _check(features, boxes, strides, out_size, sampling_ratio):
             raise ValueError(f"features on {f.device}, boxes on {boxes.device}")
         if not f.is_contiguous() or f.data_ptr() % 16:
             raise ValueError("every level must be contiguous NHWC and 16-byte aligned")
-    if out_size < 1 or sampling_ratio < 0:
-        raise ValueError(f"bad out_size {out_size} / sampling_ratio {sampling_ratio}")
+    if not 1 <= out_size <= MAX_BINS or not 0 <= sampling_ratio <= ADAPTIVE_SMAX:
+        raise ValueError(f"out_size must be in 1..{MAX_BINS} and sampling_ratio in "
+                         f"0..{ADAPTIVE_SMAX}, got {out_size} / {sampling_ratio}")
 
 
 def _box_tables(boxes, levels):
     """Flat boxes, int32 levels and image indices of (B, N) boxes."""
     B, N = boxes.shape[:2]
     images = torch.arange(B, dtype=torch.int32, device=boxes.device).repeat_interleave(N)
-    return (boxes.reshape(B * N, 4).contiguous(),
-            levels.reshape(B * N).to(torch.int32).contiguous(), images)
+    flat = boxes.reshape(B * N, 4)
+    if not flat.is_contiguous() or flat.data_ptr() % 16:   # the kernels read 16-byte boxes
+        flat = flat.clone(memory_format=torch.contiguous_format)
+    return flat, levels.reshape(B * N).to(torch.int32).contiguous(), images
 
 
 def _forward_kernel(features, boxes, levels, strides, out_size, sampling_ratio):
@@ -169,38 +180,36 @@ def _forward_kernel(features, boxes, levels, strides, out_size, sampling_ratio):
 
 def _backward_kernel(grad, boxes, levels, level_shapes, strides, out_size,
                      sampling_ratio, dtype):
-    """Per-level feature gradients from the backward kernel: it adds into one
-    zeroed float32 accumulator over every level and image, which is split
-    into (B, H_l, W_l, C) views and cast to the features' dtype (for
-    float32 features the views are the result)."""
+    """Per-level (B, H_l, W_l, C) feature gradients in the features' dtype.
+    The kernel writes every element exactly once, so the outputs come from
+    torch.empty: no zeroed accumulator and no cast pass."""
     B, N = boxes.shape[:2]
     C = grad.shape[-1]
-    if grad.dtype not in _VEC or C % _VEC[grad.dtype]:
-        raise ValueError(f"grad must be float32 or bfloat16 with C a multiple of "
-                         f"{_VEC.get(grad.dtype)}, got {grad.dtype} C={C}")
-    grad = grad.contiguous()
-    sizes = [B * h * w * C for h, w in level_shapes]
-    acc = torch.zeros(sum(sizes), dtype=torch.float32, device=boxes.device)
-    if B * N:
-        boxes_flat, levels_flat, images = _box_tables(boxes, levels)
-        L = len(level_shapes)
-        offsets = (ctypes.c_longlong * L)(*[sum(sizes[:i]) for i in range(L)])
-        hs = (ctypes.c_int * L)(*[h for h, _ in level_shapes])
-        ws = (ctypes.c_int * L)(*[w for _, w in level_shapes])
-        scales = (ctypes.c_float * L)(*[1.0 / s for s in strides])
-        with torch.cuda.device(boxes.device):
-            stream = torch.cuda.current_stream().cuda_stream
-            err = _library().roi_align_bwd(
-                offsets, hs, ws, scales, L, boxes_flat.data_ptr(), levels_flat.data_ptr(),
-                images.data_ptr(), B * N, grad.data_ptr(), C, out_size, sampling_ratio,
-                int(grad.dtype == torch.bfloat16), acc.data_ptr(), stream)
-        if err != 0:
-            raise RuntimeError(f"roi_align_bwd launch failed: CUDA error {err}")
-        multilevel_roi_align.bwd_launches += 1
-    grads, start = [], 0
-    for (h, w), n in zip(level_shapes, sizes):
-        grads.append(acc[start:start + n].view(B, h, w, C).to(dtype))
-        start += n
+    if grad.dtype != dtype or dtype not in _VEC or C % _VEC[dtype]:
+        raise ValueError(f"grad must be float32 or bfloat16 in the features' dtype {dtype} "
+                         f"with C a multiple of {_VEC.get(dtype)}, got {grad.dtype} C={C}")
+    if B * N == 0:
+        return [torch.zeros((B, h, w, C), dtype=dtype, device=boxes.device)
+                for h, w in level_shapes]
+    if not grad.is_contiguous() or grad.data_ptr() % 16:
+        grad = grad.clone(memory_format=torch.contiguous_format)
+    grads = [torch.empty((B, h, w, C), dtype=dtype, device=boxes.device)
+             for h, w in level_shapes]
+    boxes_flat, levels_flat, _ = _box_tables(boxes, levels)
+    L = len(level_shapes)
+    outs = (ctypes.c_void_p * L)(*[g.data_ptr() for g in grads])
+    hs = (ctypes.c_int * L)(*[h for h, _ in level_shapes])
+    ws = (ctypes.c_int * L)(*[w for _, w in level_shapes])
+    scales = (ctypes.c_float * L)(*[1.0 / s for s in strides])
+    with torch.cuda.device(boxes.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _library().roi_align_bwd(
+            outs, hs, ws, scales, L, boxes_flat.data_ptr(), levels_flat.data_ptr(), B, N,
+            grad.data_ptr(), C, out_size, sampling_ratio, int(dtype == torch.bfloat16),
+            stream)
+    if err != 0:
+        raise RuntimeError(f"roi_align_bwd launch failed: CUDA error {err}")
+    multilevel_roi_align.bwd_launches += 1
     return grads
 
 

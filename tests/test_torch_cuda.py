@@ -12,6 +12,7 @@ import torch
 
 from omni3d_tpu_torch.ops.roi_align import (multilevel_roi_align_plain,
                                              multilevel_roi_align_plain_bwd, route_levels)
+from omni3d_tpu_torch.ops import roi_align_cuda as rac
 from omni3d_tpu_torch.ops.roi_align_cuda import multilevel_roi_align
 
 STRIDES = (4, 8, 16, 32, 64)
@@ -53,11 +54,7 @@ def test_kernel_matches_plain(device, dtype, sampling_ratio, routing):
     levels = route_levels(boxes, STRIDES, 2, routing)
     want = multilevel_roi_align_plain(feats, boxes, levels, STRIDES, 7, sampling_ratio)
     assert got.dtype == dtype and got.shape == want.shape
-    if dtype == torch.float32:
-        atol = 1e-5
-    else:
-        atol = 2.0 ** (float(torch.log2(want.float().abs().max()).floor()) - 7)
-    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=0)
+    _assert_fwd_close(got, want)
 
 
 @pytest.mark.cuda
@@ -72,6 +69,10 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(device):
         multilevel_roi_align(feats, boxes.double(), STRIDES)
     with pytest.raises(ValueError):
         multilevel_roi_align(feats, boxes.cpu(), STRIDES)
+    with pytest.raises(ValueError):   # more bins, or samples per bin, than the kernels hold
+        multilevel_roi_align(feats, boxes, STRIDES, out_size=9)
+    with pytest.raises(ValueError):
+        multilevel_roi_align(feats, boxes, STRIDES, sampling_ratio=10)
 
 
 def bf16_ulp(x):
@@ -85,7 +86,8 @@ def bf16_ulp(x):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 def test_bwd_kernel_matches_plain(device, dtype, sampling_ratio, routing):
     """Through loss.backward(): one backward launch; f32 within
-    1e-5 * max|plain| + 1e-6 (atomics add in another order on every run);
+    1e-5 * max|plain| + 1e-6 (the kernel adds each box's banded product
+    Ay^T G Ax, the plain version each tap: the same terms in another order);
     bf16 within one output ULP of the plain result after the same single
     cast, plus that f32 slack."""
     feats, boxes = _case(device, dtype)
@@ -100,14 +102,86 @@ def test_bwd_kernel_matches_plain(device, dtype, sampling_ratio, routing):
     levels = route_levels(boxes, STRIDES, 2, routing)
     want = multilevel_roi_align_plain_bwd(g, boxes, levels, [f.shape[1:3] for f in feats],
                                           STRIDES, 7, sampling_ratio, dtype)
+    _assert_bwd_close([f.grad for f in feats], want, feats)
+
+
+def _assert_bwd_close(got, want, feats):
     scale = max(float(w.float().abs().max()) for w in want)
-    for f, w in zip(feats, want):
-        assert f.grad.dtype == dtype and f.grad.shape == f.shape
-        err = (f.grad.float() - w.float()).abs()
+    for k, w, f in zip(got, want, feats):
+        assert k.dtype == f.dtype and k.shape == f.shape
+        err = (k.float() - w.float()).abs()
         tol = 1e-5 * scale + 1e-6
-        if dtype == torch.bfloat16:
+        if w.dtype == torch.bfloat16:
             tol = tol + bf16_ulp(w.float())
         assert bool((err <= tol).all()), float(err.max())
+
+
+def _assert_fwd_close(got, want):
+    if want.dtype == torch.float32:
+        atol = 1e-5
+    else:
+        atol = 2.0 ** (float(torch.log2(want.float().abs().max()).floor()) - 7)
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=0)
+
+
+def _edge_case(device, dtype, C=256, img=512):
+    """chip_smoke.make_boxes' edge cases (outside the image, zero width and
+    height, touching the border, 512 x 8 px = 128 cells wide at p2, 6 x 512
+    px, the whole image at p5/p6), a box of negative width and a NaN box."""
+    gen = torch.Generator().manual_seed(3)
+    feats = [torch.randn(2, img // s, img // s, C, generator=gen).to(device, dtype)
+             for s in STRIDES]
+    nan = float("nan")
+    edge = torch.tensor([
+        [-40, -30, -4, -6], [100, 100, 100, 140], [200, 220, 230, 220],
+        [img - 9, img - 7, img, img], [0, 0, img, img], [0, 200, img, 208],
+        [300, 0, 306, img], [10, 10, 60, 60], [10, 10, 120, 120], [10, 10, 250, 250],
+        [-100, -100, 500, 500], [-500, -400, 900, 1000], [90, 40, 30, 100],
+        [nan, nan, nan, nan]], dtype=torch.float32)
+    return feats, edge.expand(2, -1, -1).contiguous().to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("routing", ["canonical", "fit"])
+@pytest.mark.parametrize("sampling_ratio", [0, 2])
+@pytest.mark.parametrize("dtype,C", [(torch.float32, 256), (torch.bfloat16, 256),
+                                     (torch.bfloat16, 72), (torch.float32, 36)],
+                         ids=["f32", "bf16", "bf16-C72", "f32-C36"])
+def test_kernels_on_edge_boxes_and_ragged_channels(device, dtype, C, sampling_ratio, routing):
+    """Both kernels against their plain versions on the edge-case boxes
+    (bands wider than a window, reversed and clamped axes, an empty band)
+    and at channel counts that are not a multiple of the kernels' channel
+    tiles (32 forward, 64 backward); the NaN box pools to zeros."""
+    feats, boxes = _edge_case(device, dtype, C)
+    levels = route_levels(boxes, STRIDES, 2, routing)
+    shapes = [f.shape[1:3] for f in feats]
+    got = multilevel_roi_align(feats, boxes, STRIDES, 7, sampling_ratio, routing=routing)
+    want = multilevel_roi_align_plain(feats, boxes, levels, STRIDES, 7, sampling_ratio)
+    torch.cuda.synchronize()
+    _assert_fwd_close(got, want)
+    assert bool((got[:, -1] == 0).all())
+    g = torch.randn(got.shape, generator=torch.Generator().manual_seed(4)).to(device, dtype)
+    kern = rac._backward_kernel(g, boxes, levels, shapes, STRIDES, 7, sampling_ratio, dtype)
+    plain = multilevel_roi_align_plain_bwd(g, boxes, levels, shapes, STRIDES, 7,
+                                           sampling_ratio, dtype)
+    torch.cuda.synchronize()
+    _assert_bwd_close(kern, plain, feats)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_bwd_kernel_is_bit_reproducible(device, dtype):
+    """The backward kernel writes each gradient cell once, adding its boxes in
+    index order: two calls on the same inputs give bit-equal gradients."""
+    feats, boxes = _case(device, dtype)
+    levels = route_levels(boxes, STRIDES, 2, "canonical")
+    shapes = [f.shape[1:3] for f in feats]
+    g = torch.randn((2, boxes.shape[1], 7, 7, feats[0].shape[-1]),
+                    generator=torch.Generator().manual_seed(5)).to(device, dtype)
+    first = rac._backward_kernel(g, boxes, levels, shapes, STRIDES, 7, 0, dtype)
+    second = rac._backward_kernel(g, boxes, levels, shapes, STRIDES, 7, 0, dtype)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
 @pytest.mark.cuda
