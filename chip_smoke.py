@@ -26,7 +26,20 @@ Phases (each raises on failure):
      exactly one forward and one backward launch per step, finite losses,
      parameters and BN statistics moving, ms/step, img/s, peak memory; a
      NaN batch the stabilizer skips; one float32 step with the plain pooler
-     (forward and backward) against the kernels' step.
+     (forward and backward) against the kernels' step;
+  6. the training entry point: a synthetic Omni3D-format dataset written
+     from a seed (48 PPM images at SUN RGB-D's 530 x 730, 16 PNG images at
+     KITTI's 375 x 1242, the 50 categories, 1-20 objects each), then
+     `tools.train_net` on configs/cubercnn_DLA34_FPN.yaml at full width in
+     bfloat16 (the 25 training scales, 8 shape buckets, batch 8, 4 loader
+     workers, a checkpoint every 8 iterations) for 24 iterations and again
+     with --resume to 32: finite losses, the checkpoint files and
+     metrics.json, the resume at iteration 24, the priors buffers equal to
+     compute_priors of the dataset, one forward and one backward launch per
+     step, one batch normalised on the card bit-equal to the numpy collate;
+     the distinct shapes, ms/step (the first step at each shape apart), ms
+     blocked on the loader, img/s, the device busy share (torch.profiler,
+     steps 10-14) and the peak memory.
 The line before the last is the kernel summary as JSON; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -52,6 +65,7 @@ BF16_MAX_MISMATCH = 1e-3   # share of elements allowed to differ at all
 TRAIN_ROIS = 512 + 128           # per image: sampled box RoIs + foreground cube RoIs
 TRAIN_SETTINGS = (("float32", 8), ("bfloat16", 32))   # (compute dtype, batch)
 WARMUP_STEPS, TIMED_STEPS = 2, 5
+ENTRY_RESUME_TO = 32             # phase 6: tools.profile_entry's STEPS (24), then resumed to 32
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3 peak rate
 F32_OPS_PER_S = 67e12            # float32 outside the tensor cores
 
@@ -600,6 +614,117 @@ def train_path(device):
     return rows, launches, dict(loss_rel=loss_err, grad_rel=grad_err)
 
 
+def entry_point_path(device):
+    """Phase 6: `tools.train_net` on the synthetic Omni3D-format dataset of
+    `tools.profile_entry` (SPLITS, written from a seed), at full width in
+    bfloat16: STEPS iterations, then --resume to ENTRY_RESUME_TO. Returns
+    (summary, launches)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from omni3d_tpu_torch.data import datasets as data_lib
+    from omni3d_tpu_torch.data.build import get_detection_dataset_dicts
+    from omni3d_tpu_torch.data.mapper import DatasetMapper3D, batch_to_device, collate_batch
+    from omni3d_tpu_torch.engine.loop import LOG_PERIOD, PROFILE_STEPS
+    from omni3d_tpu_torch.ops.roi_align_cuda import multilevel_roi_align
+    from omni3d_tpu_torch.tools import train_net
+    from omni3d_tpu_torch.tools.profile_entry import (BS, SPLITS, STEPS, iteration_times,
+                                                      train_argv, write_dataset)
+    from omni3d_tpu_torch.utils.priors import compute_priors, priors_to_params
+
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        write_dataset(tmp)
+        out_dir, prof_dir = os.path.join(tmp, "output"), os.path.join(tmp, "profile")
+        multilevel_roi_align.launches = 0          # counts of the main path's run only
+        multilevel_roi_align.bwd_launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        first = train_net.main(train_argv(tmp, out_dir, STEPS, "--profile-dir", prof_dir))
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        resumed = train_net.main(train_argv(tmp, out_dir, ENTRY_RESUME_TO, "--resume"))
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        launches = {"forward": multilevel_roi_align.launches,
+                    "backward": multilevel_roi_align.bwd_launches}
+        peak = torch.cuda.max_memory_allocated()
+        print(f"  kernel launches in the main path's run: {launches}")
+        assert launches == {"forward": ENTRY_RESUME_TO, "backward": ENTRY_RESUME_TO}, launches
+        assert first.iterations == list(range(STEPS))
+        assert resumed.start_iter == STEPS, resumed.start_iter
+        assert resumed.iterations == list(range(STEPS, ENTRY_RESUME_TO))
+        for f in ("model_recent.ckpt", "model_final.ckpt", "metrics.json", "category_meta.json"):
+            assert os.path.exists(os.path.join(out_dir, f)), f
+        with open(os.path.join(out_dir, "metrics.json")) as f:
+            logged = [json.loads(line) for line in f]
+        assert [r["iteration"] for r in logged] == sorted(
+            {i for i in range(ENTRY_RESUME_TO) if i % LOG_PERIOD == 0}
+            | {STEPS - 1, ENTRY_RESUME_TO - 1})
+        bad = [(r["iteration"], k) for r in logged for k, v in r.items() if not np.isfinite(v)]
+        assert not bad, bad
+        with open(os.path.join(prof_dir, "summary.json")) as f:
+            profile = json.load(f)
+
+        # the priors buffers hold compute_priors of the dataset
+        cfg = resumed.model.cfg
+        fs = data_lib.get_filter_settings_from_cfg(cfg)
+        api = data_lib.Omni3D([os.path.join(tmp, "Omni3D", n + ".json") for n in SPLITS], fs)
+        classes = data_lib.metadata("omni3d_model")["thing_classes"]
+        priors = priors_to_params(compute_priors(cfg, api, classes),
+                                  cfg.MODEL.ROI_HEADS.NUM_CLASSES, cfg.MODEL.ROI_CUBE_HEAD.CLUSTER_BINS)
+        for k, v in priors.items():   # NaN (a category with one object) equals NaN here
+            np.testing.assert_array_equal(getattr(resumed.model.roi_heads, k).cpu().numpy(), v,
+                                          err_msg=k)
+        print(f"  priors buffers equal compute_priors of the dataset: {sorted(priors)}; "
+              f"{float(priors['priors_dims_per_cat'][:, 0].mean()):.3f} m mean dims")
+
+        # one batch: normalised on the card, bit-equal to the numpy collate
+        records = get_detection_dataset_dicts(list(SPLITS))
+        mapper = DatasetMapper3D(cfg, is_train=True)
+        pick = records[:BS // 2] + records[-(BS // 2):]   # both splits
+        samples = [mapper(r, short=640, flip=bool(i % 2)) for i, r in enumerate(pick)]
+        want = collate_batch(samples, cfg.MODEL.PIXEL_MEAN, cfg.MODEL.PIXEL_STD)
+        got = batch_to_device(collate_batch(samples, cfg.MODEL.PIXEL_MEAN, cfg.MODEL.PIXEL_STD,
+                                            normalize=False), device,
+                              cfg.MODEL.PIXEL_MEAN, cfg.MODEL.PIXEL_STD)
+        for k, v in want.items():
+            if not torch.equal(got[k].cpu(), torch.from_numpy(v)):
+                raise AssertionError(f"batch {k}: card normalisation differs from the collate")
+        print(f"  batch of {BS} at {tuple(want['images'].shape[1:3])}: normalised on the "
+              "card, bit-equal to the numpy collate")
+
+    res = iteration_times([first, resumed])
+    profiled = first.iterations[PROFILE_STEPS[0]:PROFILE_STEPS[1]]
+    res.update(
+        steps=ENTRY_RESUME_TO, bs=BS, peak_mem_gib=peak / 2 ** 30,
+        device_busy_share=profile["device_busy_share"], profile=profile,
+        profiled_shapes=[list(first.shapes[i]) for i in profiled],
+        # device ms per profiled step over the unprofiled median iteration:
+        # the busy share without the profiler's host cost (two windows)
+        device_busy_over_median_step=profile["device_busy_ms_per_step"] / res["ms_per_step"],
+        wall_s=dict(first_run=t1 - t0, resumed_run=t2 - t1),
+        skipped=[first.step.state["skipped"], resumed.step.state["skipped"]],
+        last_total_loss=logged[-1]["total_loss"], launches=launches)
+    print(f"  {len(res['shapes'])} distinct padded shapes: {res['shapes']}")
+    print(f"  {res['ms_per_step']:.1f} ms/step (median of {res['steady_steps']}, first step at "
+          "each shape apart: " + ", ".join(f"{tuple(f['shape'])} {f['ms']:.0f}"
+                                          for f in res["first_step_at_each_shape"])
+          + "; the resumed run's first step: " + ", ".join(
+              f"{f['ms']:.0f}, {f['data_ms']:.0f} of it starting the loader"
+              for f in res["first_step_of_a_resumed_run"])
+          + f"), {res['ms_blocked_on_loader']:.1f} ms/step blocked on the loader (median; mean "
+          f"{res['ms_blocked_on_loader_mean']:.1f}), {res['img_per_s']:.1f} img/s")
+    print(f"  device busy {100 * profile['device_busy_share']:.0f}% over steps 10-14 under the "
+          f"profiler ({profile['device_busy_ms_per_step']:.1f} of "
+          f"{profile['wall_ms_per_step']:.1f} ms per step; "
+          f"{100 * res['device_busy_over_median_step']:.0f}% of the unprofiled median step), "
+          f"peak {peak / 2 ** 30:.2f} GiB; resumed at iteration {resumed.start_iter}, "
+          f"{res['skipped']} steps skipped, last loss {res['last_total_loss']:.4f}")
+    return res, launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -617,38 +742,43 @@ def main():
           f"{torch.cuda.get_device_name(0)}; TF32 off (cuDNN and matmul)")
 
     from omni3d_tpu_torch.ops import roi_align_cuda
-    print("[1/5] build")
+    print("[1/6] build")
     path, secs, log = roi_align_cuda.build()
     print(f"  {os.path.relpath(path, ROOT)} built in {secs:.1f} s")
     for line in log.splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print("  ptxas:", line.strip()[:160])
 
-    print("[2/5] forward kernel vs plain PyTorch version")
+    print("[2/6] forward kernel vs plain PyTorch version")
     main_case, worst = kernel_vs_plain(device)
 
-    print("[3/5] inference main path: DLA34-FPN inference at 512 px")
+    print("[3/6] inference main path: DLA34-FPN inference at 512 px")
     timings, launches = main_path(device)
 
-    print("[4/5] backward kernel vs plain PyTorch version")
+    print("[4/6] backward kernel vs plain PyTorch version")
     worst_bwd = bwd_vs_plain(device)
     at_train = time_kernels_at_train_shape(device)
 
-    print("[5/5] training main path: DLA34-FPN training steps at 512 px")
+    print("[5/6] training main path: DLA34-FPN training steps at 512 px")
     train_rows, train_launches, plain_cmp = train_path(device)
+
+    print("[6/6] training entry point: tools.train_net on a synthetic Omni3D-format dataset")
+    entry, entry_launches = entry_point_path(device)
 
     bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "omni3d_tpu")]
     assert not bad, bad
     print("inference: " + json.dumps(timings))
     print("training: " + json.dumps(dict(steps=train_rows, plain_pooler_step=plain_cmp)))
+    print("training entry point: " + json.dumps(entry))
     print(card)
     print(json.dumps({"kernels": [{
         "name": "multilevel_roi_align_fwd", "route": "cuda",
         "source": "omni3d_tpu_torch/csrc/roi_align_fwd.cu",
         "replaces": "omni3d_tpu/ops/roi_align_pallas.py:658",
         "also_replaces": "omni3d_tpu/ops/roi_align_pallas.py:469",
-        "launches": launches + train_launches["forward"],
-        "launches_by_path": {"inference": launches, "training": train_launches["forward"]},
+        "launches": launches + train_launches["forward"] + entry_launches["forward"],
+        "launches_by_path": {"inference": launches, "training": train_launches["forward"],
+                             "training_entry_point": entry_launches["forward"]},
         "max_abs_err": max(worst, at_train["fwd_max_abs_err"]),
         "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
         "bound_ms": main_case["bound_ms"], "bound_by": main_case["bound_by"],
@@ -661,7 +791,9 @@ def main():
         "name": "multilevel_roi_align_bwd", "route": "cuda",
         "source": "omni3d_tpu_torch/csrc/roi_align_bwd.cu",
         "replaces": "omni3d_tpu/ops/roi_align_bwd_pallas.py:61",
-        "launches": train_launches["backward"],
+        "launches": train_launches["backward"] + entry_launches["backward"],
+        "launches_by_path": {"training": train_launches["backward"],
+                             "training_entry_point": entry_launches["backward"]},
         "max_abs_err": max(worst_bwd, at_train["bwd_max_abs_err"]),
         "max_abs_err_train_shape": at_train["bwd_max_abs_err"],
         "ms": at_train["bwd_ms"], "plain_ms": at_train["bwd_plain_ms"],

@@ -33,25 +33,10 @@ import torch
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
-def _busy_ms(events) -> float:
-    """Union of [start, end) intervals of device kernels, ms."""
-    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
-    total, cur_s, cur_e = 0, None, None
-    for s, e in spans:
-        if cur_e is None or s > cur_e:
-            if cur_e is not None:
-                total += cur_e - cur_s
-            cur_s, cur_e = s, e
-        else:
-            cur_e = max(cur_e, e)
-    if cur_e is not None:
-        total += cur_e - cur_s
-    return total / 1e3   # us -> ms
-
-
 def main(argv=None):
     from ..config import get_default_cfg
     from ..engine import train as train_mod
+    from ..engine.loop import device_busy_ms
     from .synthetic import synthetic_trainer
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -148,7 +133,7 @@ def main(argv=None):
         by_name[e.name] = by_name.get(e.name, 0.0) + (e.time_range.end - e.time_range.start)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:15]
     roi = {n: us / 1e3 / args.steps for n, us in by_name.items() if "roi_align" in n}
-    busy = _busy_ms(kernels) / args.steps
+    busy = device_busy_ms(kernels) / args.steps
 
     card = torch.cuda.get_device_name(0)
     res = {

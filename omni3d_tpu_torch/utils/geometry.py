@@ -1,5 +1,7 @@
 """3D geometry the cube head and `decode_cube` need (port of the matching
-functions of `omni3d_tpu.utils.geometry`). Batched over leading dims, f32."""
+functions of `omni3d_tpu.utils.geometry`). Batched over leading dims, f32;
+`virtual_scale` and `approx_eval_resolution` also serve the priors on the
+host, on Python floats."""
 from __future__ import annotations
 
 import torch
@@ -141,3 +143,21 @@ def so3_relative_angle(R1, R2, eps: float = 1e-4, cos_angle: bool = False):
     trace = torch.einsum("...ij,...ij->...", R1, R2)   # trace(R1 @ R2^T)
     cos = ((trace - 1.0) * 0.5).clamp(-1.0 + eps, 1.0 - eps)
     return cos if cos_angle else torch.arccos(cos)
+
+
+def virtual_scale(f, H, f0, H0):
+    """Depth scaling factor between focal spaces (f0, H0) -> (f, H):
+    (H0 * f) / (f0 * H) (reference compute_virtual_scale_from_focal_spaces,
+    math_util.py:581-592). Python floats or tensors."""
+    return (H0 * f) / (f0 * H)
+
+
+def approx_eval_resolution(h, w, scale_min=0, scale_max=1e10):
+    """Resolution an (h, w) image runs through the model at, and its scale
+    factor (reference math_util.py:262-289). Host helper on Python floats."""
+    orig_h = h
+    sf = scale_min / min(h, w)
+    h, w = h * sf, w * sf
+    sf = min(scale_max / max(h, w), 1.0)
+    h, w = h * sf, w * sf
+    return h, w, h / orig_h

@@ -196,3 +196,60 @@ def test_bwd_kernel_is_the_transpose_of_the_fwd_kernel(device):
     lhs = float((g.double() * out.detach().double()).sum())
     rhs = float(sum((f.grad.double() * f.detach().double()).sum() for f in feats))
     assert abs(lhs - rhs) <= 1e-5 * abs(lhs)
+
+
+@pytest.mark.cuda
+def test_training_entry_point_steps_on_the_card(device, tmp_path):
+    """Two iterations of tools.train_net on the card from a synthetic
+    Omni3D-format dataset (narrow widths): one forward and one backward
+    kernel launch per step, finite losses, a checkpoint; the batch
+    normalised on the card is bit-equal to the numpy collate's."""
+    import json
+    import os
+
+    import numpy as np
+
+    from omni3d_tpu_torch.data.build import get_detection_dataset_dicts
+    from omni3d_tpu_torch.data.mapper import DatasetMapper3D, batch_to_device, collate_batch
+    from omni3d_tpu_torch.tools import train_net
+    from omni3d_tpu_torch.tools.synthetic import write_omni3d_dataset, write_omni3d_stats
+
+    cats = ("car", "chair", "lamp", "sofa", "table")
+    root = str(tmp_path)
+    write_omni3d_dataset(root, "SUNRGBD_train", 4, 53, 73, "ppm", seed=1, dataset_id=1,
+                         objects=(1, 5), categories=cats)
+    write_omni3d_dataset(root, "KITTI_train", 4, 37, 124, "png", seed=2, dataset_id=2,
+                         objects=(1, 5), categories=cats)
+    write_omni3d_stats(root)
+    opts = {"OUTPUT_DIR": os.path.join(root, "out"), "DATASETS.TRAIN": "('SUNRGBD_train', 'KITTI_train')",
+            "DATASETS.TEST": "()", "DATASETS.CATEGORY_NAMES": str(list(cats)),
+            "MODEL.ROI_HEADS.NUM_CLASSES": "5", "MODEL.FPN.OUT_CHANNELS": "64",
+            "MODEL.ROI_BOX_HEAD.FC_DIM": "128", "MODEL.ROI_CUBE_HEAD.FC_DIM": "128",
+            "INPUT.MIN_SIZE_TRAIN": "(64, 96, 128)", "INPUT.MAX_SIZE_TRAIN": "600",
+            "SOLVER.IMS_PER_BATCH": "4", "SOLVER.CHECKPOINT_PERIOD": "2",
+            "TPU.COMPUTE_DTYPE": "bfloat16", "DATALOADER.NUM_WORKERS": "2", "SEED": "0"}
+    before = (multilevel_roi_align.launches, multilevel_roi_align.bwd_launches)
+    run = train_net.main(["--config-file", os.path.join(os.path.dirname(__file__), "..", "configs",
+                                                        "cubercnn_DLA34_FPN.yaml"),
+                          "--datasets-root", os.path.join(root, "Omni3D"), "--max-steps", "2",
+                          "--device", "cuda"] + [x for kv in opts.items() for x in kv])
+    torch.cuda.synchronize()
+    assert (multilevel_roi_align.launches - before[0],
+            multilevel_roi_align.bwd_launches - before[1]) == (2, 2)
+    assert next(run.model.parameters()).is_cuda and run.iterations == [0, 1]
+    with open(os.path.join(root, "out", "metrics.json")) as f:
+        for line in f:
+            assert all(np.isfinite(v) for v in json.loads(line).values())
+    assert os.path.exists(os.path.join(root, "out", "model_final.ckpt"))
+
+    cfg = run.model.cfg
+    records = get_detection_dataset_dicts(["SUNRGBD_train", "KITTI_train"])
+    mapper = DatasetMapper3D(cfg, is_train=True)
+    samples = [mapper(r, short=96, flip=bool(i % 2)) for i, r in enumerate(records[2:6])]
+    want = collate_batch(samples, cfg.MODEL.PIXEL_MEAN, cfg.MODEL.PIXEL_STD)
+    got = batch_to_device(collate_batch(samples, cfg.MODEL.PIXEL_MEAN, cfg.MODEL.PIXEL_STD,
+                                        normalize=False), device,
+                          cfg.MODEL.PIXEL_MEAN, cfg.MODEL.PIXEL_STD)
+    assert got["images"].is_cuda
+    for k, v in want.items():
+        assert torch.equal(got[k].cpu(), torch.from_numpy(v)), k
