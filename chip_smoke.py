@@ -39,7 +39,21 @@ Phases (each raises on failure):
      step, one batch normalised on the card bit-equal to the numpy collate;
      the distinct shapes, ms/step (the first step at each shape apart), ms
      blocked on the loader, img/s, the device busy share (torch.profiler,
-     steps 10-14) and the peak memory.
+     steps 10-14) and the peak memory;
+  7. evaluation: two synthetic test splits written from a seed (32 PPM
+     images at SUN RGB-D's 530 x 730, 8 PNG images at KITTI's 375 x 1242),
+     then `tools.train_net --eval-only` with phase 6's model_final.ckpt at
+     TPU.EVAL_BATCH_SIZE 1 and 8 (bfloat16, full width): the result files,
+     every AP value a percentage or the protocol's -1 / NaN, two forward
+     and no backward launches per inference batch; the forward kernel's
+     output at each distinct (padded pyramid, box count) of each run held
+     against the plain pooler on the same recorded inputs; a GT echo through
+     `Omni3DEvaluationHelper` with IoU3D on the card at AP2D = AP3D = 100 on
+     both splits; the card's IoU3D within 1e-5 of the CPU's on the
+     evaluation bench's (detection, GT) pairs; `tools.bench_eval` (2D and 3D
+     evaluate + accumulate s/img, IoU3D ms, matcher us); ms per image by
+     split and batch size (data and compute apart, the first batch at each
+     padded shape apart), the padded shapes and the peak memory.
 The line before the last is the kernel summary as JSON; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -48,6 +62,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -66,6 +81,12 @@ TRAIN_ROIS = 512 + 128           # per image: sampled box RoIs + foreground cube
 TRAIN_SETTINGS = (("float32", 8), ("bfloat16", 32))   # (compute dtype, batch)
 WARMUP_STEPS, TIMED_STEPS = 2, 5
 ENTRY_RESUME_TO = 32             # phase 6: tools.profile_entry's STEPS (24), then resumed to 32
+# phase 7's test splits: name -> (images, height, width, format, focal), SUN
+# RGB-D's and KITTI's image sizes and focal lengths (MIN_SIZE_TEST 512 pads
+# them to 512 x 705 and 512 x 1696 before the loader's buckets)
+EVAL_SPLITS = {"SUNRGBD_test": (32, 530, 730, "ppm", 529.5),
+               "KITTI_test": (8, 375, 1242, "png", 721.5)}
+EVAL_BATCH_SIZES = (1, 8)
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3 peak rate
 F32_OPS_PER_S = 67e12            # float32 outside the tensor cores
 
@@ -614,13 +635,11 @@ def train_path(device):
     return rows, launches, dict(loss_rel=loss_err, grad_rel=grad_err)
 
 
-def entry_point_path(device):
+def entry_point_path(device, tmp):
     """Phase 6: `tools.train_net` on the synthetic Omni3D-format dataset of
-    `tools.profile_entry` (SPLITS, written from a seed), at full width in
-    bfloat16: STEPS iterations, then --resume to ENTRY_RESUME_TO. Returns
-    (summary, launches)."""
-    import tempfile
-
+    `tools.profile_entry` (SPLITS, written from a seed under `tmp`), at full
+    width in bfloat16: STEPS iterations, then --resume to ENTRY_RESUME_TO.
+    Returns (summary, launches, the path of model_final.ckpt)."""
     import numpy as np
     import torch
     from omni3d_tpu_torch.data import datasets as data_lib
@@ -634,66 +653,65 @@ def entry_point_path(device):
     from omni3d_tpu_torch.utils.priors import compute_priors, priors_to_params
 
     torch.cuda.empty_cache()
-    with tempfile.TemporaryDirectory() as tmp:
-        write_dataset(tmp)
-        out_dir, prof_dir = os.path.join(tmp, "output"), os.path.join(tmp, "profile")
-        multilevel_roi_align.launches = 0          # counts of the main path's run only
-        multilevel_roi_align.bwd_launches = 0
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        first = train_net.main(train_argv(tmp, out_dir, STEPS, "--profile-dir", prof_dir))
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        resumed = train_net.main(train_argv(tmp, out_dir, ENTRY_RESUME_TO, "--resume"))
-        torch.cuda.synchronize()
-        t2 = time.perf_counter()
-        launches = {"forward": multilevel_roi_align.launches,
-                    "backward": multilevel_roi_align.bwd_launches}
-        peak = torch.cuda.max_memory_allocated()
-        print(f"  kernel launches in the main path's run: {launches}")
-        assert launches == {"forward": ENTRY_RESUME_TO, "backward": ENTRY_RESUME_TO}, launches
-        assert first.iterations == list(range(STEPS))
-        assert resumed.start_iter == STEPS, resumed.start_iter
-        assert resumed.iterations == list(range(STEPS, ENTRY_RESUME_TO))
-        for f in ("model_recent.ckpt", "model_final.ckpt", "metrics.json", "category_meta.json"):
-            assert os.path.exists(os.path.join(out_dir, f)), f
-        with open(os.path.join(out_dir, "metrics.json")) as f:
-            logged = [json.loads(line) for line in f]
-        assert [r["iteration"] for r in logged] == sorted(
-            {i for i in range(ENTRY_RESUME_TO) if i % LOG_PERIOD == 0}
-            | {STEPS - 1, ENTRY_RESUME_TO - 1})
-        bad = [(r["iteration"], k) for r in logged for k, v in r.items() if not np.isfinite(v)]
-        assert not bad, bad
-        with open(os.path.join(prof_dir, "summary.json")) as f:
-            profile = json.load(f)
+    write_dataset(tmp)
+    out_dir, prof_dir = os.path.join(tmp, "output"), os.path.join(tmp, "profile")
+    multilevel_roi_align.launches = 0          # counts of the main path's run only
+    multilevel_roi_align.bwd_launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    first = train_net.main(train_argv(tmp, out_dir, STEPS, "--profile-dir", prof_dir))
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    resumed = train_net.main(train_argv(tmp, out_dir, ENTRY_RESUME_TO, "--resume"))
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    launches = {"forward": multilevel_roi_align.launches,
+                "backward": multilevel_roi_align.bwd_launches}
+    peak = torch.cuda.max_memory_allocated()
+    print(f"  kernel launches in the main path's run: {launches}")
+    assert launches == {"forward": ENTRY_RESUME_TO, "backward": ENTRY_RESUME_TO}, launches
+    assert first.iterations == list(range(STEPS))
+    assert resumed.start_iter == STEPS, resumed.start_iter
+    assert resumed.iterations == list(range(STEPS, ENTRY_RESUME_TO))
+    for f in ("model_recent.ckpt", "model_final.ckpt", "metrics.json", "category_meta.json"):
+        assert os.path.exists(os.path.join(out_dir, f)), f
+    with open(os.path.join(out_dir, "metrics.json")) as f:
+        logged = [json.loads(line) for line in f]
+    assert [r["iteration"] for r in logged] == sorted(
+        {i for i in range(ENTRY_RESUME_TO) if i % LOG_PERIOD == 0}
+        | {STEPS - 1, ENTRY_RESUME_TO - 1})
+    bad = [(r["iteration"], k) for r in logged for k, v in r.items() if not np.isfinite(v)]
+    assert not bad, bad
+    with open(os.path.join(prof_dir, "summary.json")) as f:
+        profile = json.load(f)
 
-        # the priors buffers hold compute_priors of the dataset
-        cfg = resumed.model.cfg
-        fs = data_lib.get_filter_settings_from_cfg(cfg)
-        api = data_lib.Omni3D([os.path.join(tmp, "Omni3D", n + ".json") for n in SPLITS], fs)
-        classes = data_lib.metadata("omni3d_model")["thing_classes"]
-        priors = priors_to_params(compute_priors(cfg, api, classes),
-                                  cfg.MODEL.ROI_HEADS.NUM_CLASSES, cfg.MODEL.ROI_CUBE_HEAD.CLUSTER_BINS)
-        for k, v in priors.items():   # NaN (a category with one object) equals NaN here
-            np.testing.assert_array_equal(getattr(resumed.model.roi_heads, k).cpu().numpy(), v,
-                                          err_msg=k)
-        print(f"  priors buffers equal compute_priors of the dataset: {sorted(priors)}; "
-              f"{float(priors['priors_dims_per_cat'][:, 0].mean()):.3f} m mean dims")
+    # the priors buffers hold compute_priors of the dataset
+    cfg = resumed.model.cfg
+    fs = data_lib.get_filter_settings_from_cfg(cfg)
+    api = data_lib.Omni3D([os.path.join(tmp, "Omni3D", n + ".json") for n in SPLITS], fs)
+    classes = data_lib.metadata("omni3d_model")["thing_classes"]
+    priors = priors_to_params(compute_priors(cfg, api, classes),
+                              cfg.MODEL.ROI_HEADS.NUM_CLASSES, cfg.MODEL.ROI_CUBE_HEAD.CLUSTER_BINS)
+    for k, v in priors.items():   # NaN (a category with one object) equals NaN here
+        np.testing.assert_array_equal(getattr(resumed.model.roi_heads, k).cpu().numpy(), v,
+                                      err_msg=k)
+    print(f"  priors buffers equal compute_priors of the dataset: {sorted(priors)}; "
+          f"{float(priors['priors_dims_per_cat'][:, 0].mean()):.3f} m mean dims")
 
-        # one batch: normalised on the card, bit-equal to the numpy collate
-        records = get_detection_dataset_dicts(list(SPLITS))
-        mapper = DatasetMapper3D(cfg, is_train=True)
-        pick = records[:BS // 2] + records[-(BS // 2):]   # both splits
-        samples = [mapper(r, short=640, flip=bool(i % 2)) for i, r in enumerate(pick)]
-        want = collate_batch(samples, cfg.MODEL.PIXEL_MEAN, cfg.MODEL.PIXEL_STD)
-        got = batch_to_device(collate_batch(samples, cfg.MODEL.PIXEL_MEAN, cfg.MODEL.PIXEL_STD,
-                                            normalize=False), device,
-                              cfg.MODEL.PIXEL_MEAN, cfg.MODEL.PIXEL_STD)
-        for k, v in want.items():
-            if not torch.equal(got[k].cpu(), torch.from_numpy(v)):
-                raise AssertionError(f"batch {k}: card normalisation differs from the collate")
-        print(f"  batch of {BS} at {tuple(want['images'].shape[1:3])}: normalised on the "
-              "card, bit-equal to the numpy collate")
+    # one batch: normalised on the card, bit-equal to the numpy collate
+    records = get_detection_dataset_dicts(list(SPLITS))
+    mapper = DatasetMapper3D(cfg, is_train=True)
+    pick = records[:BS // 2] + records[-(BS // 2):]   # both splits
+    samples = [mapper(r, short=640, flip=bool(i % 2)) for i, r in enumerate(pick)]
+    want = collate_batch(samples, cfg.MODEL.PIXEL_MEAN, cfg.MODEL.PIXEL_STD)
+    got = batch_to_device(collate_batch(samples, cfg.MODEL.PIXEL_MEAN, cfg.MODEL.PIXEL_STD,
+                                        normalize=False), device,
+                          cfg.MODEL.PIXEL_MEAN, cfg.MODEL.PIXEL_STD)
+    for k, v in want.items():
+        if not torch.equal(got[k].cpu(), torch.from_numpy(v)):
+            raise AssertionError(f"batch {k}: card normalisation differs from the collate")
+    print(f"  batch of {BS} at {tuple(want['images'].shape[1:3])}: normalised on the "
+          "card, bit-equal to the numpy collate")
 
     res = iteration_times([first, resumed])
     profiled = first.iterations[PROFILE_STEPS[0]:PROFILE_STEPS[1]]
@@ -722,7 +740,200 @@ def entry_point_path(device):
           f"{100 * res['device_busy_over_median_step']:.0f}% of the unprofiled median step), "
           f"peak {peak / 2 ** 30:.2f} GiB; resumed at iteration {resumed.start_iter}, "
           f"{res['skipped']} steps skipped, last loss {res['last_total_loss']:.4f}")
-    return res, launches
+    return res, launches, os.path.join(out_dir, "model_final.ckpt")
+
+
+def _ap_ok(key, v):
+    """An AP value the protocol can give: a percentage, -1 (nothing to
+    evaluate in that range) or, for a per-category or Omni3D-split mean, NaN."""
+    if v != v:
+        return key.startswith(("Omni3D", "Concat/AP2D-", "Concat/AP3D-"))
+    return v == -1.0 or 0.0 <= v <= 100.0
+
+
+def evaluation_path(device, tmp, weights):
+    """Phase 7: `tools.train_net --eval-only` with phase 6's model_final.ckpt
+    on two synthetic test splits written from a seed under `tmp`
+    (EVAL_SPLITS), at TPU.EVAL_BATCH_SIZE 1 and then 8, bfloat16 at full
+    width; a GT echo through `Omni3DEvaluationHelper` with IoU3D on the
+    card; the card's IoU3D against the CPU's on the evaluation bench's
+    (detection, GT) pairs; and `tools.bench_eval`. Returns (summary,
+    launches)."""
+    import pickle
+
+    import numpy as np
+    import torch
+    from omni3d_tpu_torch.data import datasets as data_lib
+    from omni3d_tpu_torch.evaluation.omni3d_eval import (Omni3DEvaluationHelper, gts_from_api,
+                                                         paired_iou3d)
+    from omni3d_tpu_torch.models import rcnn3d
+    from omni3d_tpu_torch.ops.roi_align_cuda import multilevel_roi_align
+    from omni3d_tpu_torch.tools import bench_eval, train_net
+    from omni3d_tpu_torch.tools.profile_entry import SPLITS
+    from omni3d_tpu_torch.tools.synthetic import write_omni3d_dataset
+
+    for i, (name, (n, h, w, fmt, focal)) in enumerate(EVAL_SPLITS.items()):
+        write_omni3d_dataset(tmp, name, n, h, w, fmt, seed=10 + i, dataset_id=i + 1,
+                             focal=focal, objects=(1, 20))
+    print("  test splits: " + ", ".join(f"{k} {n} x {h}x{w} {fmt}"
+                                        for k, (n, h, w, fmt, _) in EVAL_SPLITS.items()))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    runs, launches, pooler_checks = {}, {"forward": 0, "backward": 0}, []
+    for bs in EVAL_BATCH_SIZES:
+        out_dir = os.path.join(tmp, f"eval_bs{bs}")
+        argv = ["--config-file", os.path.join(ROOT, "configs", "cubercnn_DLA34_FPN.yaml"),
+                "--datasets-root", os.path.join(tmp, "Omni3D"), "--device", device.type,
+                "--eval-only", "--weights", weights,
+                "OUTPUT_DIR", out_dir, "DATASETS.TRAIN", str(tuple(SPLITS)),
+                "DATASETS.TEST", str(tuple(EVAL_SPLITS)), "TPU.COMPUTE_DTYPE", "bfloat16",
+                "TPU.EVAL_BATCH_SIZE", str(bs), "SEED", "0"]
+        spy, seen = first_pooler_calls()
+        rcnn3d.multilevel_roi_align = spy
+        multilevel_roi_align.launches = 0          # counts of the main path's run only
+        multilevel_roi_align.bwd_launches = 0
+        try:
+            t0 = time.perf_counter()
+            results = train_net.main(argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            rcnn3d.multilevel_roi_align = multilevel_roi_align
+        n_batches = sum(len(results[k]["inference"]["batches"]) for k in EVAL_SPLITS)
+        run_launches = {"forward": multilevel_roi_align.launches,
+                        "backward": multilevel_roi_align.bwd_launches}
+        checks = pooler_vs_plain(seen, bs)
+        pooler_checks += checks
+        print(f"  bs {bs}: kernel launches {run_launches} over {n_batches} inference batches; "
+              f"forward kernel vs plain pooler on the run's own inputs at {len(checks)} "
+              f"(pyramid, boxes) shapes: max|k-p| {max(c['max_abs_err'] for c in checks):.3e}, "
+              f"differing at most {max(c['mismatch'] for c in checks):.1e}")
+        assert run_launches == {"forward": 2 * n_batches, "backward": 0}, run_launches
+        for k in launches:
+            launches[k] += run_launches[k]
+        files = os.path.join(out_dir, "inference", "iter_final")
+        with open(os.path.join(files, "omni3d_results.json")) as f:
+            saved = json.load(f)
+        assert set(saved) == set(EVAL_SPLITS), sorted(saved)
+        for name, (n, *_) in EVAL_SPLITS.items():
+            with open(os.path.join(files, name, "instances_predictions.pkl"), "rb") as f:
+                preds = pickle.load(f)
+            assert results[name]["inference"]["images"] == n
+            bad = {k: v for k, v in results[name].items() if k.startswith(("AP", "AR"))
+                   and not _ap_ok(k, v)}
+            assert not bad, (name, bad)
+            print(f"  bs {bs} {name}: {len(preds)} predictions, AP2D {results[name]['AP2D']:.3f}"
+                  f" AP3D {results[name]['AP3D']:.3f}")
+        bad = {k: v for k, v in results["summary"].items() if not _ap_ok(k, v)}
+        assert not bad, bad
+        runs[bs] = dict(wall_s=wall, splits={k: results[k]["inference"] for k in EVAL_SPLITS})
+    peak = torch.cuda.max_memory_allocated()
+
+    # GT echo: the GTs as predictions, IoU3D on the card -> AP 100
+    _, fs, _ = train_net.setup(train_net.parse_args(argv))
+    helper = Omni3DEvaluationHelper(list(EVAL_SPLITS), fs, None, device=device)
+    for name in EVAL_SPLITS:
+        api = data_lib.Omni3D([data_lib.metadata(name)["json_file"]], dict(fs))
+        helper.add_predictions(name, [dict(g, score=1.0) for g in gts_from_api(api)], api)
+        res = helper.evaluate(name)
+        print(f"  GT echo {name}: AP2D {res['AP2D']} AP3D {res['AP3D']}")
+        assert res["AP2D"] == res["AP3D"] == 100.0, res
+
+    # the card's IoU3D vs the CPU's on the evaluation bench's pairs
+    dv, gv = bench_eval.group_pairs(*bench_eval.synth())
+    card, cpu = paired_iou3d(dv, gv, device), paired_iou3d(dv, gv, "cpu")
+    iou_err = float(np.abs(card - cpu).max())
+    print(f"  IoU3D card vs CPU on {len(dv)} (detection, GT) pairs: max |diff| {iou_err:.3e} "
+          f"(tol 1e-5), {int((card == cpu).sum())} bit-equal")
+    assert iou_err <= 1e-5, iou_err
+
+    bench = bench_eval.run(device=device)
+    summary = dict(
+        splits={k: list(v[:3]) for k, v in EVAL_SPLITS.items()}, peak_mem_gib=peak / 2 ** 30,
+        roi_align_fwd_vs_plain=pooler_checks,
+        roi_align_fwd_max_abs_err=max(c["max_abs_err"] for c in pooler_checks),
+        iou3d_card_vs_cpu_max_abs=iou_err, iou3d_pairs=len(dv), bench_eval=bench,
+        runs={bs: _eval_times(r) for bs, r in runs.items()})
+    summary["padded_shapes"] = sorted({tuple(b[:2]) for r in runs.values()
+                                       for t in r["splits"].values() for b in t["batches"]})
+    summary["n_padded_shapes"] = len(summary["padded_shapes"])
+    for bs, r in summary["runs"].items():
+        print(f"  bs {bs}: " + "; ".join(
+            f"{k} {v['ms_per_img']:.1f} ms/img (compute {v['compute_ms_per_img']:.1f}, data "
+            f"{v['data_ms_per_img']:.1f}; steady compute "
+            f"{v['steady_compute_ms_per_img'] or float('nan'):.1f}), AP dict at "
+            f"{v['ap_ready_s']:.1f} s" for k, v in r.items() if isinstance(v, dict))
+            + f"; wall {r['wall_s']:.1f} s")
+    print(f"  {summary['n_padded_shapes']} distinct padded shapes {summary['padded_shapes']}, "
+          f"peak {peak / 2 ** 30:.2f} GiB")
+    return summary, launches
+
+
+def first_pooler_calls():
+    """(spy, seen): a stand-in for `rcnn3d.multilevel_roi_align` that calls
+    the kernel's wrapper and keeps copies of the inputs and the output of the
+    first call at each (pyramid shape, boxes shape) in `seen`."""
+    from omni3d_tpu_torch.ops.roi_align_cuda import multilevel_roi_align
+    seen = {}
+
+    def spy(features, boxes, strides, out_size, sampling_ratio=0, min_level=2,
+            routing="canonical"):
+        out = multilevel_roi_align(features, boxes, strides, out_size, sampling_ratio,
+                                   min_level, routing)
+        key = (tuple(tuple(f.shape) for f in features), tuple(boxes.shape))
+        if key not in seen:
+            seen[key] = dict(features=[f.detach().clone() for f in features],
+                             boxes=boxes.detach().clone(), out=out.detach().clone(),
+                             args=(tuple(strides), out_size, sampling_ratio, min_level, routing))
+        return out
+    return spy, seen
+
+
+def pooler_vs_plain(seen, bs):
+    """Each recorded forward-kernel output against the plain pooler on the
+    same inputs, with phase 2's tolerances; raises where they disagree."""
+    import torch
+    from omni3d_tpu_torch.ops.roi_align import multilevel_roi_align_plain, route_levels
+    rows = []
+    for (shapes, box_shape), r in seen.items():
+        strides, out_size, S, min_level, routing = r["args"]
+        levels = route_levels(r["boxes"], strides, min_level, routing)
+        want = multilevel_roi_align_plain(r["features"], r["boxes"], levels, strides,
+                                          out_size, S)
+        torch.cuda.synchronize()
+        err, tol, frac, ok = fwd_agreement(r["out"], want)
+        row = dict(bs=bs, p2=list(shapes[0][1:3]), boxes=list(box_shape),
+                   dtype=str(want.dtype).replace("torch.", ""), max_abs_err=err, tol=tol,
+                   mismatch=frac)
+        if not ok:
+            raise AssertionError(f"forward kernel disagrees with plain at an eval shape: {row}")
+        rows.append(row)
+    seen.clear()
+    return rows
+
+
+def _eval_times(run):
+    """Per split of one eval run: ms per image (compute, data), the compute
+    ms per image of batches at an already-seen shape (the first batch at
+    each shape apart) and the seconds from do_test's start to its AP dict."""
+    out, seen = {"wall_s": run["wall_s"]}, set()
+    for name, t in run["splits"].items():
+        steady, firsts = [], []
+        for h, w, n, data_ms, compute_ms in t["batches"]:
+            if (h, w) in seen:
+                steady.append(compute_ms / n)
+            else:
+                seen.add((h, w))
+                firsts.append(dict(shape=[h, w], images=n, compute_ms=compute_ms))
+        n = t["images"]
+        out[name] = dict(
+            images=n, data_s=t["data_s"], compute_s=t["compute_s"],
+            ms_per_img=(t["data_s"] + t["compute_s"]) * 1e3 / n,
+            compute_ms_per_img=t["compute_s"] * 1e3 / n, data_ms_per_img=t["data_s"] * 1e3 / n,
+            steady_compute_ms_per_img=statistics.median(steady) if steady else None,
+            first_batch_at_each_shape=firsts, evaluate_s=t["evaluate_s"],
+            ap_ready_s=t["ap_ready_s"])
+    return out
 
 
 def main():
@@ -742,44 +953,52 @@ def main():
           f"{torch.cuda.get_device_name(0)}; TF32 off (cuDNN and matmul)")
 
     from omni3d_tpu_torch.ops import roi_align_cuda
-    print("[1/6] build")
+    print("[1/7] build")
     path, secs, log = roi_align_cuda.build()
     print(f"  {os.path.relpath(path, ROOT)} built in {secs:.1f} s")
     for line in log.splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print("  ptxas:", line.strip()[:160])
 
-    print("[2/6] forward kernel vs plain PyTorch version")
+    print("[2/7] forward kernel vs plain PyTorch version")
     main_case, worst = kernel_vs_plain(device)
 
-    print("[3/6] inference main path: DLA34-FPN inference at 512 px")
+    print("[3/7] inference main path: DLA34-FPN inference at 512 px")
     timings, launches = main_path(device)
 
-    print("[4/6] backward kernel vs plain PyTorch version")
+    print("[4/7] backward kernel vs plain PyTorch version")
     worst_bwd = bwd_vs_plain(device)
     at_train = time_kernels_at_train_shape(device)
 
-    print("[5/6] training main path: DLA34-FPN training steps at 512 px")
+    print("[5/7] training main path: DLA34-FPN training steps at 512 px")
     train_rows, train_launches, plain_cmp = train_path(device)
 
-    print("[6/6] training entry point: tools.train_net on a synthetic Omni3D-format dataset")
-    entry, entry_launches = entry_point_path(device)
+    with tempfile.TemporaryDirectory() as tmp:
+        print("[6/7] training entry point: tools.train_net on a synthetic Omni3D-format dataset")
+        entry, entry_launches, weights = entry_point_path(device, tmp)
+
+        print("[7/7] evaluation: tools.train_net --eval-only on synthetic test splits")
+        evaluation, eval_launches = evaluation_path(device, tmp, weights)
 
     bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "omni3d_tpu")]
     assert not bad, bad
     print("inference: " + json.dumps(timings))
     print("training: " + json.dumps(dict(steps=train_rows, plain_pooler_step=plain_cmp)))
     print("training entry point: " + json.dumps(entry))
+    print("evaluation: " + json.dumps(evaluation))
     print(card)
     print(json.dumps({"kernels": [{
         "name": "multilevel_roi_align_fwd", "route": "cuda",
         "source": "omni3d_tpu_torch/csrc/roi_align_fwd.cu",
         "replaces": "omni3d_tpu/ops/roi_align_pallas.py:658",
         "also_replaces": "omni3d_tpu/ops/roi_align_pallas.py:469",
-        "launches": launches + train_launches["forward"] + entry_launches["forward"],
+        "launches": (launches + train_launches["forward"] + entry_launches["forward"]
+                     + eval_launches["forward"]),
         "launches_by_path": {"inference": launches, "training": train_launches["forward"],
-                             "training_entry_point": entry_launches["forward"]},
-        "max_abs_err": max(worst, at_train["fwd_max_abs_err"]),
+                             "training_entry_point": entry_launches["forward"],
+                             "evaluation": eval_launches["forward"]},
+        "max_abs_err": max(worst, at_train["fwd_max_abs_err"],
+                           evaluation["roi_align_fwd_max_abs_err"]),
         "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
         "bound_ms": main_case["bound_ms"], "bound_by": main_case["bound_by"],
         "library_ms": None,
@@ -793,7 +1012,8 @@ def main():
         "replaces": "omni3d_tpu/ops/roi_align_bwd_pallas.py:61",
         "launches": train_launches["backward"] + entry_launches["backward"],
         "launches_by_path": {"training": train_launches["backward"],
-                             "training_entry_point": entry_launches["backward"]},
+                             "training_entry_point": entry_launches["backward"],
+                             "evaluation": eval_launches["backward"]},
         "max_abs_err": max(worst_bwd, at_train["bwd_max_abs_err"]),
         "max_abs_err_train_shape": at_train["bwd_max_abs_err"],
         "ms": at_train["bwd_ms"], "plain_ms": at_train["bwd_plain_ms"],

@@ -13,24 +13,38 @@ iteration, so a resumed run repeats an unbroken one (bit for bit on the
 CPU). Every LOG_PERIOD iterations the logs come to the host, go to
 metrics.json and the log line, and the stabilizer's exploded-iteration
 budget is checked; when it is spent the attempt fails and
-`train_with_retries` restarts from `model_recent`.
+`train_with_retries` restarts from `model_recent`. Every TEST.EVAL_PERIOD
+iterations `eval_fn` evaluates the training model in eval mode, and its
+modes come back unchanged.
+
+Evaluation (port of the JAX package's `run_inference_dataset` and
+`do_test`; the reference's do_test, tools/train_net.py:56-114): inference
+over each DATASETS.TEST split on the model's device, TPU.EVAL_BATCH_SIZE
+images per batch, then the Omni3D AP2D / AP3D tables with IoU3D on the same
+device, files under <OUTPUT_DIR>/inference/iter_<N>/.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
 import time
 
+import numpy as np
 import torch
 
-from ..data.build import build_detection_train_loader
+from ..data import datasets as data_lib
+from ..data.build import build_detection_test_loader, build_detection_train_loader
 from ..data.mapper import batch_to_device
-from ..models.rcnn3d import build_model
+from ..evaluation.error_stats import compute_error_stats, error_log_string
+from ..evaluation.omni3d_eval import Omni3DEvaluationHelper, instances_to_predictions
+from ..models.rcnn3d import build_model, inference, inference_kwargs
 from ..solver.build import build_lr_schedule, build_optimizer
 from ..utils import checkpoint as ckpt
 from ..utils.events import EventStorage
 from ..utils.priors import load_priors_
+from ..vis.logperf import print_per_category_table
 from .train import make_train_step
 
 LOG_PERIOD = 20    # host<->device sync cadence of the logs (loss fetch + retry check)
@@ -138,9 +152,154 @@ class _StepProfile:
         return summary
 
 
+# the outputs of `inference` that become predictions
+_PREDICTION_KEYS = ("boxes_orig", "classes", "scores", "valid", "center_cam", "dims", "pose",
+                    "corners", "center_2D")
+
+
+def _to_host(out: dict) -> dict:
+    """One batch's prediction outputs as float32 numpy arrays, through one
+    synchronising copy (class indices and the valid mask are exact in
+    float32, which the JAX package also converts them to)."""
+    B, K = out["valid"].shape
+    parts = [out[k].float().reshape(B, K, -1) for k in _PREDICTION_KEYS]
+    host = torch.cat(parts, -1).cpu().numpy()
+    res, i = {}, 0
+    for k, p in zip(_PREDICTION_KEYS, parts):
+        res[k] = host[..., i:i + p.shape[-1]].reshape(tuple(out[k].shape))
+        i += p.shape[-1]
+    return res
+
+
+def run_inference_dataset(cfg, model, dataset_name, id_map):
+    """Inference over one test dataset on the model's device -> (predictions,
+    timing) (reference inference_on_dataset, omni3d_evaluation.py:522-641).
+
+    Batches of TPU.EVAL_BATCH_SIZE images from `build_detection_test_loader`
+    go to the device as uint8, are normalised there and run through
+    `models.rcnn3d.inference`; the outputs come back in one copy per batch.
+    timing: images, data_s (host time waiting for the loader), compute_s
+    (to the copy's end) and per batch [H, W, images, data ms, compute ms].
+    """
+    device = next(model.parameters()).device
+    loader, n_total = build_detection_test_loader(cfg, dataset_name,
+                                                  batch_size=cfg.TPU.EVAL_BATCH_SIZE)
+    contig_to_dataset = {v: k for k, v in id_map.items()}
+    kw = inference_kwargs(cfg)
+    predictions, batches = [], []
+    next_id = 1
+    t_data = t_compute = 0.0
+    done = 0
+    start = t_last_log = t0 = time.perf_counter()
+    for host_batch, records in loader:
+        t1 = time.perf_counter()
+        batch = batch_to_device(host_batch, device, cfg.MODEL.PIXEL_MEAN, cfg.MODEL.PIXEL_STD)
+        out = _to_host(inference(model, batch["images"], batch["Ks"], batch["ratios"],
+                                 hw=batch["hw"], **kw))
+        t2 = time.perf_counter()
+        t_data += t1 - t0
+        t_compute += t2 - t1
+        batches.append([*host_batch["images"].shape[1:3], len(records),
+                        (t1 - t0) * 1e3, (t2 - t1) * 1e3])
+        for b, rec in enumerate(records):
+            det = {k: v[b] for k, v in out.items()}
+            preds = instances_to_predictions(det, rec["image_id"], contig_to_dataset, next_id)
+            next_id += len(preds)
+            predictions.extend(preds)
+        done += len(records)
+        now = time.perf_counter()
+        # progress + ETA every 5 s (reference inference_on_dataset,
+        # omni3d_evaluation.py:596-631), per image since the loader batches
+        if now - t_last_log > 5.0 and done < n_total:
+            per_img = (now - start) / done
+            eta = int(per_img * (n_total - done))
+            print(f"[eval] {dataset_name}: {done}/{n_total} images  "
+                  f"data {t_data / done:.4f} s/img  compute {t_compute / done:.4f} s/img  "
+                  f"total {per_img:.4f} s/img  ETA {eta // 60}m{eta % 60:02d}s")
+            t_last_log = now
+        t0 = time.perf_counter()
+    return predictions, dict(images=done, data_s=t_data, compute_s=t_compute, batches=batches)
+
+
+def do_test(cfg, model, output_dir=None, iteration="final"):
+    """Evaluate `model` (in eval mode) on every cfg.DATASETS.TEST dataset
+    (reference do_test, tools/train_net.py:56-114); IoU3D runs on the
+    model's device.
+
+    Predictions and results land under <output_dir>/inference/iter_<N>/
+    (<dataset>/instances_predictions.pkl and omni3d_results.json). After
+    each dataset the per-instance error stats (xy/z/whl/ry vs the matched
+    GT) are printed. Returns {dataset: AP dict with its "error_stats" and
+    its "inference" timing, "summary": summarize_all()}.
+    """
+    if (torch.distributed.is_available() and torch.distributed.is_initialized()
+            and torch.distributed.get_world_size() > 1):
+        raise NotImplementedError("do_test runs in one process; gathering predictions across "
+                                  "processes waits for ROADMAP item 9")
+    device = next(model.parameters()).device
+    filter_settings = data_lib.get_filter_settings_from_cfg(cfg)
+    id_map = data_lib.metadata("omni3d_model")["thing_dataset_id_to_contiguous_id"]
+    inference_dir = (os.path.join(output_dir, "inference", f"iter_{iteration}")
+                     if output_dir else None)
+    helper = Omni3DEvaluationHelper(list(cfg.DATASETS.TEST), filter_settings, inference_dir,
+                                    device=device)
+    n_cats = max(len(id_map), 1)
+    if inference_dir is not None:
+        print("[eval] sample images with drawn detections wait for ROADMAP item 12 (vis); "
+              "none are written")
+    results = {}
+    start = time.perf_counter()
+    for name in cfg.DATASETS.TEST:
+        preds, timing = run_inference_dataset(cfg, model, name, id_map)
+        gt_api = data_lib.Omni3D([data_lib.metadata(name)["json_file"]], dict(filter_settings))
+        helper.add_predictions(name, preds, gt_api)
+        path = helper.save_predictions(name)
+        if path:
+            print(f"[eval] saved predictions -> {path}")
+        t0 = time.perf_counter()
+        results[name] = helper.evaluate(name)
+        timing.update(evaluate_s=time.perf_counter() - t0,
+                      ap_ready_s=time.perf_counter() - start)
+        print(f"[eval] {name}: " + "  ".join(
+            f"{k}={v:.2f}" for k, v in results[name].items() if k in ("AP2D", "AP3D")))
+        # per-dataset 3D error stats (reference train_net.py:102-107 ->
+        # vis.visualize_from_instances)
+        anns = [dict(a) for a in gt_api.dataset.get("annotations", [])]
+        for a in anns:  # raw Omni3D jsons carry the pose as R_cam
+            a.setdefault("pose", a.get("R_cam"))
+        Ks = {img["id"]: img["K"] for img in gt_api.dataset.get("images", []) if "K" in img}
+        stats = compute_error_stats(preds, anns, score_thresh=float(np.sqrt(1.0 / n_cats)), Ks=Ks)
+        print("[eval] " + error_log_string(name, stats, iteration))
+        results[name]["error_stats"] = stats
+        results[name]["inference"] = timing
+    results["summary"] = helper.summarize_all()
+    if inference_dir is not None:
+        helper.save_results()
+    if results["summary"]:
+        print_per_category_table(results["summary"])
+        print("[eval] " + "  ".join(f"{k}={v:.2f}" for k, v in results["summary"].items()
+                                    if k.endswith(("AP2D", "AP3D"))))
+    return results
+
+
+@contextlib.contextmanager
+def eval_mode(model):
+    """`model` in eval mode inside the block; afterwards every module's
+    training flag is set back as it was, so BN that `CubeRCNN.train` keeps
+    in eval mode (MODEL.USE_BN=False) stays so."""
+    modes = [(m, m.training) for m in model.modules()]
+    model.eval()
+    try:
+        yield model
+    finally:
+        for m, mode in modes:
+            m.training = mode
+
+
 def do_train(cfg, output_dir: str, resume: bool = False, max_steps: int | None = None,
              records=None, priors=None, seed: int = 0,
-             profile_dir: str | None = None, init_variables_fn=None, device="cuda"):
+             profile_dir: str | None = None, init_variables_fn=None, device="cuda",
+             eval_fn=None):
     """One training attempt; returns (success, TrainRun).
 
     success=False signals the retry protocol to restart from the last
@@ -149,9 +308,10 @@ def do_train(cfg, output_dir: str, resume: bool = False, max_steps: int | None =
     priors: `utils.priors.priors_to_params` arrays for the prior buffers.
     init_variables_fn: model -> None, loading initial weights in place when
       NOT resuming (MODEL.WEIGHTS_PRETRAIN, MODEL.WEIGHTS or ImageNet).
-    Evaluation during training (the JAX package's eval_fn) and the
-    training visualisation wait for ROADMAP items 11 and 12: with
-    TEST.EVAL_PERIOD or VIS_PERIOD set, one line says so.
+    eval_fn: (model, iteration) -> None, called after every TEST.EVAL_PERIOD
+      iterations with the training model in eval mode (`eval_mode`).
+    The training visualisation waits for ROADMAP item 12: with VIS_PERIOD
+    set, one line says so.
     """
     device = torch.device(device)
     model = build_model(cfg, device=device, seed=seed, train=True)
@@ -175,9 +335,6 @@ def do_train(cfg, output_dir: str, resume: bool = False, max_steps: int | None =
     if cfg.VIS_PERIOD > 0:
         print(f"[train] VIS_PERIOD={cfg.VIS_PERIOD}: training visualisation waits for "
               "ROADMAP item 12; no images are written")
-    if cfg.DATASETS.TEST and cfg.TEST.EVAL_PERIOD > 0:
-        print(f"[train] TEST.EVAL_PERIOD={cfg.TEST.EVAL_PERIOD}: evaluation waits for "
-              "ROADMAP item 11; none runs during training")
 
     loader = build_detection_train_loader(cfg, records=records, seed=seed,
                                           skip_batches=start_iter)
@@ -227,6 +384,10 @@ def do_train(cfg, output_dir: str, resume: bool = False, max_steps: int | None =
                     return False, run
             storage.step()
             checkpointer.step(iteration, lambda: train_state(run), {"iteration": iteration})
+            if (eval_fn is not None and cfg.TEST.EVAL_PERIOD > 0
+                    and (iteration + 1) % cfg.TEST.EVAL_PERIOD == 0):
+                with eval_mode(model):
+                    eval_fn(model, iteration)
     finally:
         if profile is not None:
             profile.stop(len(run.iterations))

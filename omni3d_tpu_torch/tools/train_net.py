@@ -1,22 +1,29 @@
-"""Train Cube R-CNN with the PyTorch port (the training path of the JAX
-package's tools/train_net.py, same flags).
+"""Train and evaluate Cube R-CNN with the PyTorch port (the JAX package's
+tools/train_net.py, same flags).
 
     python -m omni3d_tpu_torch.tools.train_net --config-file configs/cubercnn_DLA34_FPN.yaml \
-        --datasets-root datasets/Omni3D [--resume] [--max-steps N] [--weights PATH] \
-        [--profile-dir DIR] [--device cuda|cpu] [KEY VALUE ...]
+        --datasets-root datasets/Omni3D [--eval-only] [--resume] [--max-steps N] \
+        [--weights PATH] [--profile-dir DIR] [--device cuda|cpu] [KEY VALUE ...]
 
 `--datasets-root` holds the Omni3D jsons (<name>.json for every name in
-DATASETS.TRAIN) and stats.json; image paths in the jsons are relative to its
-parent directory. It computes the per-category priors from the training
-annotations, writes category_meta.json to OUTPUT_DIR and trains with
-checkpoints (model_recent.ckpt every SOLVER.CHECKPOINT_PERIOD iterations,
-model_final.ckpt at the end), metrics.json lines and the retry protocol.
-Initial weights, in the reference's precedence (tools/train_net.py:107-170
-of the JAX package): MODEL.WEIGHTS_PRETRAIN, then --weights / MODEL.WEIGHTS
-(a reference .pth/.pkl, a `cubercnn://` path or a checkpoint of the port),
-then ImageNet DLA weights found by `utils.model_zoo.find_imagenet_weights`.
-Evaluation (`--eval-only`, TEST.EVAL_PERIOD) waits for ROADMAP item 11 and
-multi-process training for item 9.
+DATASETS.TRAIN and DATASETS.TEST) and stats.json; image paths in the jsons
+are relative to its parent directory. Training computes the per-category
+priors from the training annotations, writes category_meta.json to
+OUTPUT_DIR and trains with checkpoints (model_recent.ckpt every
+SOLVER.CHECKPOINT_PERIOD iterations, model_final.ckpt at the end),
+metrics.json lines and the retry protocol; every TEST.EVAL_PERIOD
+iterations it evaluates the model on DATASETS.TEST. Initial weights, in the
+reference's precedence (tools/train_net.py:107-170 of the JAX package):
+MODEL.WEIGHTS_PRETRAIN, then --weights / MODEL.WEIGHTS (a reference
+.pth/.pkl, a `cubercnn://` path or a checkpoint of the port), then ImageNet
+DLA weights found by `utils.model_zoo.find_imagenet_weights`.
+
+`--eval-only` builds the inference model, loads --weights / MODEL.WEIGHTS
+(the same three kinds of file) and evaluates it on DATASETS.TEST: AP2D /
+AP3D per dataset and across them, with predictions and results under
+OUTPUT_DIR/inference/iter_final/. Both run on the CUDA card unless
+`--device cpu` is given. Multi-process training and evaluation wait for
+ROADMAP item 9.
 """
 from __future__ import annotations
 
@@ -26,24 +33,28 @@ import os
 from ..config import get_default_cfg, validate_cfg
 from ..data import datasets as data_lib
 from ..data.build import get_detection_dataset_dicts
-from ..engine.loop import train_with_retries
+from ..engine.loop import do_test, train_with_retries
+from ..models.rcnn3d import build_model
 from ..utils import checkpoint as ckpt_lib
 from ..utils import model_zoo
 from ..utils.priors import compute_priors, priors_to_params
+from ..vis.logperf import print_ap_analysis_table, print_cross_dataset_table
 from .synthetic import condition_pose_bias_
 
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description="omni3d_tpu_torch training")
     p.add_argument("--config-file", required=True)
+    p.add_argument("--eval-only", action="store_true",
+                   help="evaluate --weights / MODEL.WEIGHTS on DATASETS.TEST; no training")
     p.add_argument("--resume", action="store_true")
     p.add_argument("--max-steps", type=int, default=None,
                    help="override SOLVER.MAX_ITER (smoke runs)")
     p.add_argument("--datasets-root", default=None,
                    help="root containing Omni3D/*.json (default ./datasets/Omni3D)")
     p.add_argument("--weights", default=None,
-                   help="weights to start from: a checkpoint of the port or a reference "
-                        ".pth/.pkl (cubercnn:// paths resolve in the local cache)")
+                   help="weights to start from or to evaluate: a checkpoint of the port or a "
+                        "reference .pth/.pkl (cubercnn:// paths resolve in the local cache)")
     p.add_argument("--profile-dir", default=None,
                    help="write a torch.profiler trace of training steps 10-14 here")
     p.add_argument("--device", default="cuda", help="torch device (default: the CUDA card)")
@@ -67,6 +78,22 @@ def setup(args):
     return cfg, filter_settings, root
 
 
+def load_weights(model, path: str, what: str = "weights") -> None:
+    """Load full-model weights into `model` in place: a reference .pth/.pkl
+    or `cubercnn://` path (detectron2 names; reference
+    tools/train_net.py:80-104 of the JAX package) or a checkpoint of the
+    port (its "model" state dict, priors included)."""
+    if path.endswith((".pth", ".pkl")) or path.startswith(model_zoo.PREFIX):
+        report = ckpt_lib.convert_reference_checkpoint(
+            model_zoo.load_reference_weights(path), model)
+        print(f"[weights] {what} from {path}: {report['loaded']} tensors"
+              f" missing={len(report['missing'])} unused={len(report['unused'])}")
+        return
+    state, extra = ckpt_lib.load_checkpoint(path)
+    model.load_state_dict(state["model"])
+    print(f"[weights] {what} from checkpoint {path} (iteration {extra.get('iteration')})")
+
+
 def make_train_init_fn(args, cfg):
     """Training-path weight initialization, reference precedence:
 
@@ -84,22 +111,11 @@ def make_train_init_fn(args, cfg):
     explicit = args.weights or cfg.MODEL.WEIGHTS
     pretrain = cfg.MODEL.WEIGHTS_PRETRAIN
 
-    def load_full(model, path):
-        if path.endswith((".pth", ".pkl")) or path.startswith(model_zoo.PREFIX):
-            report = ckpt_lib.convert_reference_checkpoint(
-                model_zoo.load_reference_weights(path), model)
-            print(f"[weights] train init from {path}: {report['loaded']} tensors"
-                  f" missing={len(report['missing'])} unused={len(report['unused'])}")
-            return
-        state, _ = ckpt_lib.load_checkpoint(path)
-        model.load_state_dict(state["model"])
-        print(f"[weights] train init from checkpoint {path}")
-
     def init_fn(model):
         if pretrain:
-            load_full(model, pretrain)
+            load_weights(model, pretrain, "train init")
         if explicit:
-            load_full(model, explicit)
+            load_weights(model, explicit, "train init")
         elif not pretrain:
             condition_pose_bias_(model)
             path = model_zoo.find_imagenet_weights(cfg)
@@ -118,7 +134,8 @@ def make_train_init_fn(args, cfg):
 
 
 def main(argv=None):
-    """Train; returns the last attempt's `engine.loop.TrainRun`."""
+    """Train, or evaluate with --eval-only; returns the last training
+    attempt's `engine.loop.TrainRun`, or `engine.loop.do_test`'s results."""
     args = parse_args(argv)
     cfg, filter_settings, root = setup(args)
     output_dir = cfg.OUTPUT_DIR
@@ -127,6 +144,23 @@ def main(argv=None):
     # model category metadata (reference main:384)
     data_lib.register_and_store_model_metadata(output_dir, filter_settings,
                                                os.path.join(root, "stats.json"))
+
+    def evaluate(model, iteration):
+        results = do_test(cfg, model, output_dir, iteration=iteration)
+        print_ap_analysis_table({k: v for k, v in results.items() if k != "summary"})
+        return results
+
+    if args.eval_only:
+        model = build_model(cfg, device=args.device, seed=max(cfg.SEED, 0))
+        path = args.weights or cfg.MODEL.WEIGHTS
+        if path:
+            load_weights(model, path)
+        else:
+            print("[weights] no --weights or MODEL.WEIGHTS: evaluating seeded random weights")
+        results = evaluate(model, "final")
+        if results["summary"]:
+            print_cross_dataset_table(results["summary"])
+        return results
 
     # priors from the merged train annotations (reference main:380-424)
     train_jsons = [os.path.join(root, n + ".json") for n in cfg.DATASETS.TRAIN]
@@ -141,6 +175,7 @@ def main(argv=None):
         cfg, output_dir, resume=args.resume, max_steps=args.max_steps, records=records,
         priors=priors, profile_dir=args.profile_dir, seed=max(cfg.SEED, 0),
         init_variables_fn=make_train_init_fn(args, cfg), device=args.device,
+        eval_fn=evaluate if cfg.DATASETS.TEST else None,
     )
     print("[train] finished")
     return run

@@ -13,6 +13,17 @@ _VERT_SIGNS = (
     (-1, -1, 1), (1, -1, 1), (1, 1, 1), (-1, 1, 1),
 )
 
+# Triangle faces of a cuboid in that vertex order, with the reference's
+# winding (reference math_util.py:195-213).
+CUBOID_FACES = (
+    (0, 1, 2), (2, 3, 0),  # front
+    (1, 5, 6), (6, 2, 1),  # right
+    (4, 0, 3), (3, 7, 4),  # left
+    (5, 4, 7), (7, 6, 5),  # back
+    (4, 5, 1), (1, 0, 4),  # top
+    (3, 2, 6), (6, 7, 3),  # bottom
+)
+
 
 def cuboid_verts(box3d: torch.Tensor, R: torch.Tensor | None = None) -> torch.Tensor:
     """(..., 8, 3) camera-space vertices of [x, y, z, w, h, l] cuboids,

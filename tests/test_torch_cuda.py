@@ -1,5 +1,5 @@
 """The CUDA ROIAlign kernels (forward and backward) vs their plain PyTorch
-versions, on the card.
+versions, the training entry point and the evaluation's IoU3D, on the card.
 
 These tests need a CUDA device and skip without one. They import no JAX, so
 they run on a machine without it; there, skip tests/conftest.py (it imports
@@ -253,3 +253,46 @@ def test_training_entry_point_steps_on_the_card(device, tmp_path):
     assert got["images"].is_cuda
     for k, v in want.items():
         assert torch.equal(got[k].cpu(), torch.from_numpy(v)), k
+
+
+@pytest.mark.cuda
+def test_iou3d_on_the_card_equals_the_cpu(device):
+    """IoU3D is a sequence of single float32 operations, explicit left-to-right
+    sums and tensor-by-tensor divisions: the card gives the CPU's values
+    (asserted within 1e-5, the chip_smoke tolerance) on the evaluation
+    bench's (detection, GT) pairs and on rotated 50 m boxes."""
+    import numpy as np
+
+    from omni3d_tpu_torch.evaluation.omni3d_eval import paired_iou3d
+    from omni3d_tpu_torch.ops import iou3d
+    from omni3d_tpu_torch.tools.bench_eval import group_pairs, synth
+    from omni3d_tpu_torch.utils.geometry import axis_angle_to_matrix, cuboid_verts
+
+    dv, gv = group_pairs(*synth(20))
+    np.testing.assert_allclose(paired_iou3d(dv, gv, device), paired_iou3d(dv, gv, "cpu"),
+                               rtol=0, atol=1e-5)
+    gen = torch.Generator().manual_seed(0)
+    boxes = torch.cat([torch.rand(32, 2, generator=gen) * 4,
+                       49 + torch.rand(32, 1, generator=gen) * 2,
+                       0.3 + torch.rand(32, 3, generator=gen) * 3], 1)
+    v = cuboid_verts(boxes, axis_angle_to_matrix(torch.randn(32, 3, generator=gen)))
+    w = v + 0.2 * torch.randn(32, 1, 3, generator=gen)
+    for a, b in zip(iou3d.box3d_overlap(v.to(device), w.to(device)), iou3d.box3d_overlap(v, w)):
+        torch.testing.assert_close(a.cpu(), b, rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_gt_echo_evaluation_on_the_card(device):
+    """Predictions equal to the GTs give AP2D = AP3D = 100 with IoU3D on the
+    card, with and without proximity evaluation."""
+    from omni3d_tpu_torch.evaluation.omni3d_eval import Omni3DEval
+    from omni3d_tpu_torch.tools.bench_eval import synth
+
+    gts, _ = synth(10)
+    for mode in ("2D", "3D"):
+        for prox in (False, True):
+            ev = Omni3DEval([dict(g) for g in gts], [dict(g, score=1.0) for g in gts],
+                            mode=mode, eval_prox=prox, device=device)
+            ev.evaluate()
+            ev.accumulate()
+            assert ev.summarize()[f"AP{mode}"] == 100.0, (mode, prox)

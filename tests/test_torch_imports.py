@@ -1,5 +1,7 @@
-"""The port imports neither JAX nor flax, nor the JAX package, and loads
-without cv2, PIL, yaml and tensorboard, which the card's machine lacks."""
+"""The port imports neither JAX nor flax, nor the JAX package, reads none
+of its files (the greedy matcher is built from the port's own
+csrc/matcher.cc), and loads without cv2, PIL, yaml and tensorboard, which
+the card's machine lacks."""
 import os
 import pathlib
 import subprocess
@@ -14,6 +16,12 @@ def test_port_modules_load_no_jax():
         for p in (ROOT / "omni3d_tpu_torch").rglob("*.py"))
     assert "omni3d_tpu_torch.ops.roi_align_cuda" in mods
     assert "omni3d_tpu_torch.tools.train_net" in mods and "omni3d_tpu_torch.data.image" in mods
+    assert {"omni3d_tpu_torch.evaluation.omni3d_eval", "omni3d_tpu_torch.evaluation.native",
+            "omni3d_tpu_torch.evaluation.error_stats", "omni3d_tpu_torch.ops.iou3d",
+            "omni3d_tpu_torch.vis.logperf", "omni3d_tpu_torch.tools.bench_eval"} <= set(mods)
+    for p in (ROOT / "omni3d_tpu_torch").rglob("*.py"):
+        text = p.read_text()
+        assert '"native"' not in text and "native/" not in text, p
     code = (
         "import importlib, sys\n"
         "for name in ('cv2', 'PIL', 'yaml', 'tensorboard'): sys.modules[name] = None\n"
