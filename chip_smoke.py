@@ -53,7 +53,25 @@ Phases (each raises on failure):
      evaluation bench's (detection, GT) pairs; `tools.bench_eval` (2D and 3D
      evaluate + accumulate s/img, IoU3D ms, matcher us); ms per image by
      split and batch size (data and compute apart, the first batch at each
-     padded shape apart), the padded shapes and the peak memory.
+     padded shape apart), the padded shapes and the peak memory;
+  8. data parallelism: (a) `tools.train_net` in a child process over NCCL at
+     world size 1 (--dist-init 127.0.0.1:<port>) on phase 6's dataset, bf16
+     batch 8, 8 iterations: finite losses, one forward and one backward
+     launch per step, model_final.ckpt loading into build_model; one f32
+     step from the same weights, batch and noise with and without DDP
+     (losses rel 1e-4, gradients 1e-3 of each tensor's largest); bf16 batch 8
+     ms/step without, with and again without DDP, the NCCL device ms per
+     step (torch.profiler) and the gradient MB all-reduced per step; (b) two
+     ranks sharing the card over gloo, one f32 step each on half of a seeded
+     global batch of 8, against a hand-computed DDP step (the halves'
+     gradients averaged, one optimizer step): parameters within 1e-3 of the
+     largest update per tensor and bit-equal across the ranks, BN statistics
+     the mean of the halves', losses rel 1e-4; each rank's first pooler call
+     held against the plain forward and backward; (c) `--eval-only` with
+     phase 6's checkpoint at world size 2 (gloo, both ranks on the card) on
+     SUNRGBD_test at batch 1: per image the gathered predictions equal phase
+     7's (scores and boxes within 1e-5), the AP dicts equal, ms per image per
+     rank. 8b's and 8c's times are two processes sharing one card.
 The line before the last is the kernel summary as JSON; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -87,6 +105,14 @@ ENTRY_RESUME_TO = 32             # phase 6: tools.profile_entry's STEPS (24), th
 EVAL_SPLITS = {"SUNRGBD_test": (32, 530, 730, "ppm", 529.5),
                "KITTI_test": (8, 375, 1242, "png", 721.5)}
 EVAL_BATCH_SIZES = (1, 8)
+DDP_STEPS = 8                    # phase 8a: train_net iterations over NCCL at world size 1
+PHASE8_TIMEOUT_S = 600           # each group of phase 8's child processes
+DDP_TIMED_STEPS = 10             # phase 8a: bf16 steps per timing window
+PROFILED_DDP_STEPS = 3
+TWO_RANK_BS = 8                  # phase 8b: the global batch, half on each rank
+# phase 8b steps at BASE_LR (no warm-up factor), so each update stands well
+# above the float32 rounding of the weights it moves
+TWO_RANK_OPTS = ("TPU.COMPUTE_DTYPE", "float32", "SOLVER.WARMUP_FACTOR", "1.0")
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3 peak rate
 F32_OPS_PER_S = 67e12            # float32 outside the tensor cores
 
@@ -622,10 +648,9 @@ def train_path(device):
                            if p.grad is not None})
     model.load_state_dict(sd)
     (kl, kg), (pl, pg) = results["kernel"], results["plain"]
-    loss_err = max(abs(kl[k] - pl[k]) / max(abs(pl[k]), 1e-12) for k in pl)
+    loss_err = _loss_rel(kl, pl)
     assert set(kg) == set(pg)
-    grad_err = max(float((kg[n] - pg[n]).abs().max()) / (float(pg[n].abs().max()) + 1e-12)
-                   for n in pg)
+    grad_err = _grad_rel(kg, pg)
     print(f"  f32 bs={bs} step, kernels vs plain pooler: losses max rel diff {loss_err:.2e} "
           f"(tol 1e-4); gradients max |diff| / max|g| {grad_err:.2e} over {len(pg)} tensors "
           f"(tol 1e-3)")
@@ -936,6 +961,435 @@ def _eval_times(run):
     return out
 
 
+def _child_setup():
+    import torch
+    sys.path.insert(0, ROOT)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch
+
+
+def _full_cfg(*opts):
+    from omni3d_tpu_torch.config import get_default_cfg
+    cfg = get_default_cfg()
+    cfg.merge_from_file(os.path.join(ROOT, "configs", "cubercnn_DLA34_FPN.yaml"))
+    cfg.merge_from_list(list(opts))
+    return cfg
+
+
+def _sync(device):
+    import torch
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _timed_steps(step, batch, gen, timed=TIMED_STEPS):
+    """Host ms of the last `timed` of WARMUP_STEPS + `timed` steps, each
+    ending in a synchronise."""
+    ms = []
+    device = batch["images"].device
+    for _ in range(WARMUP_STEPS + timed):
+        t0 = time.perf_counter()
+        step(batch, gen)
+        _sync(device)
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return ms[-timed:]
+
+
+def _loss_rel(got, want):
+    return max(abs(got[k] - v) / max(abs(v), 1e-12) for k, v in want.items())
+
+
+def _grad_rel(got, want):
+    """Largest |difference| / largest |gradient| over the tensors."""
+    return max(float((got[n] - g).abs().max()) / (float(g.abs().max()) + 1e-12)
+               for n, g in want.items())
+
+
+def _world1_child(device, tmp, result_path):
+    """Phase 8a, in its own process: `tools.train_net` over NCCL at world
+    size 1 (--dist-init 127.0.0.1:<port>), phase 6's dataset, full width,
+    bf16, batch 8, 8 iterations; then one f32 step without and with DDP from
+    the same weights, batch and noise; bf16 batch 8 step times without,
+    with, with and again without DDP, and a torch.profiler window over DDP
+    steps."""
+    torch = _child_setup()
+    from omni3d_tpu_torch.ops.roi_align_cuda import multilevel_roi_align
+    from omni3d_tpu_torch.parallel import dist as dist_lib
+    from omni3d_tpu_torch.tools import train_net
+    from omni3d_tpu_torch.tools.profile_entry import train_argv
+    from omni3d_tpu_torch.tools.synthetic import synthetic_trainer
+
+    device = torch.device(device)
+    out_dir = os.path.join(tmp, "ddp_world1")
+    argv = train_argv(tmp, out_dir, DDP_STEPS, "--dist-init",
+                      f"127.0.0.1:{dist_lib.free_port()}", "--num-processes", "1",
+                      "--process-id", "0")
+    multilevel_roi_align.launches = 0          # counts of the main path's run only
+    multilevel_roi_align.bwd_launches = 0
+    t0 = time.perf_counter()
+    run = train_net.main(argv)
+    _sync(device)
+    res = {"entry_wall_s": time.perf_counter() - t0, "iterations": run.iterations,
+           "entry_step_ms": run.step_ms, "launches": {
+               "forward": multilevel_roi_align.launches,
+               "backward": multilevel_roi_align.bwd_launches}}
+    del run
+
+    def f32_step():
+        cfg = _full_cfg("TPU.COMPUTE_DTYPE", "float32")
+        model, _, step, batch = synthetic_trainer(cfg, torch.float32, PLAIN_BS, device, img=IMG)
+        logs = step(batch, torch.Generator().manual_seed(0))
+        _sync(device)
+        return ({k: float(torch.as_tensor(v).detach()) for k, v in logs.items()},
+                {n: p.grad.clone() for n, p in model.named_parameters()})
+
+    def bf16_trainer():
+        cfg = _full_cfg("TPU.COMPUTE_DTYPE", "bfloat16")
+        return synthetic_trainer(cfg, torch.bfloat16, PLAIN_BS, device, img=IMG)
+
+    plain_logs, plain_grads = f32_step()
+    again_logs, again_grads = f32_step()   # the plain step's own run-to-run spread
+    res["plain_vs_plain_grad_rel"] = _grad_rel(again_grads, plain_grads)
+    res["plain_vs_plain_loss_rel"] = _loss_rel(again_logs, plain_logs)
+    del again_grads
+    _, _, step, batch = bf16_trainer()
+    gen = torch.Generator().manual_seed(0)
+    res["plain_ms"] = [_timed_steps(step, batch, gen, DDP_TIMED_STEPS)]
+    del step, batch
+    dist_lib.init_distributed(f"127.0.0.1:{dist_lib.free_port()}", 1, 0, device)
+    try:
+        ddp_logs, ddp_grads = f32_step()
+        model, _, step, batch = bf16_trainer()
+        res["ddp_ms"] = [_timed_steps(step, batch, gen, DDP_TIMED_STEPS) for _ in range(2)]
+        res["grad_mb_per_step"] = sum(p.numel() * p.element_size()
+                                      for p in model.parameters() if p.requires_grad) / 1e6
+        acts = [torch.profiler.ProfilerActivity.CPU]
+        if device.type == "cuda":
+            acts.append(torch.profiler.ProfilerActivity.CUDA)
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(PROFILED_DDP_STEPS):
+                step(batch, gen)
+            _sync(device)
+        events = [e for e in prof.events() if "nccl" in e.name.lower()]
+        nccl = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+        host = [e for e in events if e.device_type != torch.autograd.DeviceType.CUDA]
+        res["nccl_device_ms_per_step"] = sum(e.time_range.elapsed_us() for e in nccl) / 1e3 \
+            / PROFILED_DDP_STEPS
+        res["nccl_device_events_per_step"] = len(nccl) / PROFILED_DDP_STEPS
+        res["nccl_host_ops_per_step"] = {n: sum(e.name == n for e in host) / PROFILED_DDP_STEPS
+                                         for n in sorted({e.name for e in host})}
+        res["nccl_event_names"] = sorted({e.name for e in nccl})
+        del model, step, batch
+    finally:
+        torch.distributed.destroy_process_group()
+    _, _, step, batch = bf16_trainer()
+    res["plain_ms"].append(_timed_steps(step, batch, gen, DDP_TIMED_STEPS))
+    res["loss_rel"] = _loss_rel(ddp_logs, plain_logs)
+    res["grad_rel"] = _grad_rel(ddp_grads, plain_grads)
+    res["grads_ok"] = all(float((ddp_grads[n] - g).abs().max())
+                          <= 1e-3 * float(g.abs().max()) + 1e-6 for n, g in plain_grads.items())
+    res["bit_equal_grads"] = all(torch.equal(ddp_grads[n], g) for n, g in plain_grads.items())
+    with open(result_path, "w") as f:
+        json.dump(res, f)
+
+
+def _two_rank_child(rank, device, store, out_dir):
+    """Phase 8b, rank `rank` of two on `device` (the card) over gloo: one full-width f32
+    step on this rank's half of the seeded global batch; the parameters,
+    BN statistics and logs after it, the launch counts, and the first pooler
+    call's inputs (features, boxes, the output's gradient) held against the
+    plain pooler after the counts are read."""
+    torch = _child_setup()
+    from omni3d_tpu_torch.engine import train as train_mod
+    from omni3d_tpu_torch.ops import roi_align_cuda as rac
+    from omni3d_tpu_torch.ops.roi_align import (multilevel_roi_align_plain,
+                                                multilevel_roi_align_plain_bwd, route_levels)
+    from omni3d_tpu_torch.parallel import dist as dist_lib
+    from omni3d_tpu_torch.tools.synthetic import synthetic_trainer
+
+    device = dist_lib.init_distributed(store, 2, rank, device, backend="gloo")
+    try:
+        model, _, step, batch = synthetic_trainer(_full_cfg(*TWO_RANK_OPTS), torch.float32,
+                                                  TWO_RANK_BS, device, img=IMG)
+        b = TWO_RANK_BS // 2
+        local = {k: v[rank * b:(rank + 1) * b] for k, v in batch.items()}
+        seen = {}
+        real = train_mod.multilevel_roi_align
+
+        def spy(features, boxes, strides, out_size, sampling_ratio=0, *a, **k):
+            out = real(features, boxes, strides, out_size, sampling_ratio, *a, **k)
+            if not seen:
+                seen.update(features=[f.detach().clone() for f in features],
+                            boxes=boxes.detach().clone(), out=out.detach().clone(),
+                            args=(tuple(strides), out_size, sampling_ratio))
+                out.register_hook(keep_grad)
+            return out
+
+        def keep_grad(g):
+            seen["g"] = g.detach().clone()
+        train_mod.multilevel_roi_align = spy
+        rac.multilevel_roi_align.launches = 0          # counts of the main path's run only
+        rac.multilevel_roi_align.bwd_launches = 0
+        t0 = time.perf_counter()
+        logs = step(local, torch.Generator().manual_seed(0))
+        _sync(device)
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = {"forward": rac.multilevel_roi_align.launches,
+                    "backward": rac.multilevel_roi_align.bwd_launches}
+        train_mod.multilevel_roi_align = real
+        # the kernels against the plain pooler on this rank's recorded inputs
+        strides, P, S = seen["args"]
+        levels = route_levels(seen["boxes"], strides, 2, "canonical")
+        shapes = [f.shape[1:3] for f in seen["features"]]
+        fwd = fwd_agreement(seen["out"], multilevel_roi_align_plain(
+            seen["features"], seen["boxes"], levels, strides, P, S))
+        if not fwd[3]:
+            raise AssertionError(f"rank {rank}: forward kernel disagrees with plain: {fwd}")
+        bwd_err, _ = bwd_agreement(
+            rac._backward_kernel(seen["g"], seen["boxes"], levels, shapes, strides, P, S,
+                                 torch.float32),
+            multilevel_roi_align_plain_bwd(seen["g"], seen["boxes"], levels, shapes, strides, P,
+                                           S, torch.float32), f"rank {rank}")
+        torch.save({"logs": {k: float(v) for k, v in logs.items()},
+                    "model": {k: v.cpu() for k, v in model.state_dict().items()},
+                    "launches": launches, "ms": ms, "fwd_max_abs_err": fwd[0],
+                    "bwd_max_abs_err": bwd_err, "rois": list(seen["boxes"].shape)},
+                   os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def _eval_child(rank, device, store, argv, result_path):
+    """Phase 8c, rank `rank` of two on `device` (the card) over gloo: `tools.train_net
+    --eval-only` inside the process group the child joined."""
+    torch = _child_setup()
+    from omni3d_tpu_torch.ops.roi_align_cuda import multilevel_roi_align
+    from omni3d_tpu_torch.parallel import dist as dist_lib
+    from omni3d_tpu_torch.tools import train_net
+
+    dist_lib.init_distributed(store, 2, rank, device, backend="gloo")
+    try:
+        multilevel_roi_align.launches = 0          # counts of the main path's run only
+        multilevel_roi_align.bwd_launches = 0
+        t0 = time.perf_counter()
+        results = train_net.main(argv)
+        _sync(device)
+        wall = time.perf_counter() - t0
+        with open(result_path, "w") as f:
+            json.dump({"wall_s": wall, "inference": results["SUNRGBD_test"]["inference"],
+                       "AP": {k: v for k, v in results["SUNRGBD_test"].items()
+                              if k.startswith(("AP", "AR"))},
+                       "launches": {"forward": multilevel_roi_align.launches,
+                                    "backward": multilevel_roi_align.bwd_launches}}, f)
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def distributed_path(device, tmp, weights):
+    """Phase 8: data parallelism. (a) `tools.train_net` over NCCL at world
+    size 1 and the DDP step against the plain one; (b) two ranks sharing the
+    card over gloo against a hand-computed DDP step in this process; (c)
+    `--eval-only` at world size 2 (gloo, both on the card) against phase 7's
+    world-size-1 predictions. Returns (summary, launches)."""
+    import pickle
+
+    import numpy as np
+    import torch
+    from omni3d_tpu_torch.engine.train import compute_losses
+    from omni3d_tpu_torch.models.layers import BatchNorm2d
+    from omni3d_tpu_torch.models.rcnn3d import build_model
+    from omni3d_tpu_torch.parallel.dist import run_spawned
+    from omni3d_tpu_torch.solver.build import clip_gradients
+    from omni3d_tpu_torch.tools.profile_entry import SPLITS
+    from omni3d_tpu_torch.tools.synthetic import synthetic_trainer
+    from omni3d_tpu_torch.utils.checkpoint import load_checkpoint
+
+    summary = {}
+    # ---- 8a: world size 1 over NCCL ----
+    path = os.path.join(tmp, "ddp_world1.json")
+    t0 = time.perf_counter()
+    run_spawned(_world1_child, [(str(device), tmp, path)], PHASE8_TIMEOUT_S)
+    with open(path) as f:
+        a = json.load(f)
+    a["phase_wall_s"] = time.perf_counter() - t0
+    out_dir = os.path.join(tmp, "ddp_world1")
+    with open(os.path.join(out_dir, "metrics.json")) as f:
+        logged = [json.loads(line) for line in f]
+    bad = [(r["iteration"], k) for r in logged for k, v in r.items() if not np.isfinite(v)]
+    assert not bad, bad
+    assert a["iterations"] == list(range(DDP_STEPS)), a["iterations"]
+    assert a["launches"] == {"forward": DDP_STEPS, "backward": DDP_STEPS}, a["launches"]
+    state, _ = load_checkpoint(os.path.join(out_dir, "model_final.ckpt"))
+    build_model(_full_cfg(), device=device).load_state_dict(state["model"], strict=True)
+    assert a["loss_rel"] <= 1e-4 and a["grads_ok"], (a["loss_rel"], a["grad_rel"])
+    a.update(ddp_ms_median=[statistics.median(m) for m in a["ddp_ms"]],
+             plain_ms_median=[statistics.median(m) for m in a["plain_ms"]])
+    print(f"  8a world size 1 over NCCL: train_net {DDP_STEPS} iterations, launches "
+          f"{a['launches']}, metrics finite, model_final.ckpt loads into build_model; f32 bs "
+          f"{PLAIN_BS} step with vs without DDP: losses max rel {a['loss_rel']:.2e} (tol 1e-4), "
+          f"gradients max |diff|/max|g| {a['grad_rel']:.2e} (tol 1e-3), bit-equal "
+          f"{a['bit_equal_grads']}; two plain steps differ by {a['plain_vs_plain_grad_rel']:.2e}")
+    print(f"  8a bf16 bs {PLAIN_BS} ms/step (median of {DDP_TIMED_STEPS}, in turns): without DDP "
+          f"{a['plain_ms_median'][0]:.1f}, with DDP {a['ddp_ms_median'][0]:.1f} and "
+          f"{a['ddp_ms_median'][1]:.1f}, without again {a['plain_ms_median'][1]:.1f}; NCCL device "
+          f"ms per step {a['nccl_device_ms_per_step']:.3f} ({a['nccl_device_events_per_step']:.1f} "
+          f"kernels: {a['nccl_event_names']}; host NCCL ops per step "
+          f"{a['nccl_host_ops_per_step']}); {a['grad_mb_per_step']:.1f} MB of gradients "
+          "all-reduced per step")
+    summary["world1_nccl"] = a
+
+    # ---- 8b: two ranks on the one card over gloo, against a hand-computed DDP step ----
+    out = os.path.join(tmp, "two_ranks")
+    os.makedirs(out, exist_ok=True)
+    store = "file://" + os.path.join(out, "store")
+    t0 = time.perf_counter()
+    run_spawned(_two_rank_child, [(r, str(device), store, out) for r in range(2)],
+                PHASE8_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    ranks = [torch.load(os.path.join(out, f"rank{r}.pt")) for r in range(2)]
+    for k, v in ranks[0]["model"].items():
+        if not torch.equal(ranks[1]["model"][k], v):
+            raise AssertionError(f"8b: the two ranks' {k} differ")
+    model, opt, _, batch = synthetic_trainer(_full_cfg(*TWO_RANK_OPTS), torch.float32,
+                                             TWO_RANK_BS, device, img=IMG)
+    params = [p for g in opt.param_groups for p in g["params"]]
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    bns = [b for m in model.modules() if isinstance(m, BatchNorm2d)
+           for b in (m.running_mean, m.running_var)]
+    b = TWO_RANK_BS // 2
+    grads, stats, logs = [], [], []
+    for r in range(2):
+        model.load_state_dict(before)
+        model.zero_grad(set_to_none=True)
+        total, losses, metrics = compute_losses(
+            model, {k: v[r * b:(r + 1) * b] for k, v in batch.items()},
+            torch.Generator().manual_seed(0), img_offset=r * b)
+        total.backward()
+        grads.append([p.grad.clone() if p.grad is not None else torch.zeros_like(p)
+                      for p in params])
+        stats.append([s.clone() for s in bns])
+        logs.append({"total_loss": float(total), **{k: float(v) for k, v in losses.items()},
+                     **{k: float(v) for k, v in metrics.items()}})
+    model.load_state_dict(before)
+    for p, g0, g1 in zip(params, *grads):
+        p.grad = (g0 + g1) / 2
+    for s, s0, s1 in zip(bns, *stats):
+        s.copy_((s0 + s1) / 2)
+    clip_gradients(model.cfg, params)
+    opt.step()
+    want = model.state_dict()
+    got = ranks[0]["model"]
+    bn_keys = {k for k in want if k.endswith(("running_mean", "running_var"))}
+    update_rel = bn_rel = 0.0
+    for k, w in want.items():
+        g = got[k].to(device)
+        if k in bn_keys:
+            assert torch.allclose(g, w, rtol=1e-4, atol=1e-5), k
+            bn_rel = max(bn_rel, float(((g - w).abs() / w.abs().clamp(min=1e-5)).max()))
+        elif w.is_floating_point():
+            u_want, u_got = (w - before[k]).double(), (g - before[k]).double()
+            tol = 1e-3 * float(u_want.abs().max()) + float(before[k].abs().max()) * 2.0 ** -23
+            err = float((u_got - u_want).abs().max())
+            assert err <= tol, k
+            if float(u_want.abs().max()) > 0:
+                update_rel = max(update_rel, err / float(u_want.abs().max()))
+    loss_rel = max(abs(ranks[0]["logs"][k] - (l0 + l1) / 2) / max(abs(l0 + l1) / 2, 1e-12)
+                   for k, l0, l1 in ((k, logs[0][k], logs[1][k]) for k in logs[0]))
+    assert loss_rel <= 1e-4, loss_rel
+    for r in ranks:
+        assert r["launches"] == {"forward": 1, "backward": 1}, r["launches"]
+    summary["two_ranks_one_card_gloo"] = dict(
+        wall_s=wall, step_ms=[r["ms"] for r in ranks], loss_rel=loss_rel,
+        update_rel=update_rel, bn_rel=bn_rel,
+        fwd_max_abs_err=max(r["fwd_max_abs_err"] for r in ranks),
+        bwd_max_abs_err=max(r["bwd_max_abs_err"] for r in ranks),
+        rois_per_rank=ranks[0]["rois"], launches=[r["launches"] for r in ranks])
+    print(f"  8b two ranks sharing the card over gloo, f32 bs {TWO_RANK_BS // 2} each: parameters "
+          f"bit-equal across ranks and within {update_rel:.2e} of the hand-computed DDP step's "
+          f"largest update per tensor (tol 1e-3), BN statistics the mean of the halves' (max rel "
+          f"{bn_rel:.2e}), losses max rel {loss_rel:.2e}; per rank one "
+          f"forward and one backward launch; kernels vs plain on each rank's pooler inputs "
+          f"{ranks[0]['rois']}: forward max|k-p| "
+          f"{summary['two_ranks_one_card_gloo']['fwd_max_abs_err']:.3e}, backward "
+          f"{summary['two_ranks_one_card_gloo']['bwd_max_abs_err']:.3e}; step "
+          f"{', '.join(f'{r['ms']:.0f}' for r in ranks)} ms (two processes sharing one card, "
+          "first step)")
+    del model, opt, batch, grads, stats, before, want, got, ranks
+
+    # ---- 8c: --eval-only at world size 2, both ranks on the card over gloo ----
+    eval_out = os.path.join(tmp, "eval_world2")
+    argv = ["--config-file", os.path.join(ROOT, "configs", "cubercnn_DLA34_FPN.yaml"),
+            "--datasets-root", os.path.join(tmp, "Omni3D"), "--device", str(device),
+            "--eval-only", "--weights", weights, "OUTPUT_DIR", eval_out,
+            "DATASETS.TRAIN", str(tuple(SPLITS)), "DATASETS.TEST", "('SUNRGBD_test',)",
+            "TPU.COMPUTE_DTYPE", "bfloat16", "TPU.EVAL_BATCH_SIZE", "1", "SEED", "0"]
+    store = "file://" + os.path.join(tmp, "eval_store")
+    paths = [os.path.join(tmp, f"eval_rank{r}.json") for r in range(2)]
+    t0 = time.perf_counter()
+    run_spawned(_eval_child, [(r, str(device), store, argv, paths[r]) for r in range(2)],
+                PHASE8_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    res = []
+    for p in paths:
+        with open(p) as f:
+            res.append(json.load(f))
+
+    def load(run_dir):
+        files = os.path.join(run_dir, "inference", "iter_final")
+        with open(os.path.join(files, "SUNRGBD_test", "instances_predictions.pkl"), "rb") as f:
+            preds = pickle.load(f)
+        with open(os.path.join(files, "omni3d_results.json")) as f:
+            ap = {k: v for k, v in json.load(f)["SUNRGBD_test"].items()
+                  if k.startswith(("AP", "AR"))}
+        by_image = {}
+        for p in preds:
+            by_image.setdefault(p["image_id"], []).append(p)
+        return by_image, ap
+    got, got_ap = load(eval_out)
+    want, want_ap = load(os.path.join(tmp, "eval_bs1"))
+    assert got.keys() == want.keys() and want, (
+        f"images with predictions: {len(got)} at world size 2, {len(want)} at world size 1; "
+        f"differing {sorted(set(got) ^ set(want))}")
+    worst = 0.0
+    for image, ps in want.items():
+        qs = got[image]
+        assert len(ps) == len(qs), (image, len(ps), len(qs))
+        for p, q in zip(ps, qs):
+            assert p["category_id"] == q["category_id"], image
+            worst = max(worst, abs(p["score"] - q["score"]),
+                        float(np.abs(np.subtract(p["bbox"], q["bbox"])).max()))
+    assert worst <= 1e-5, worst
+    same_ap = all(got_ap[k] == v or (v != v and got_ap[k] != got_ap[k])
+                  for k, v in want_ap.items()) and got_ap.keys() == want_ap.keys()
+    assert same_ap, (got_ap, want_ap)
+    for r in res:
+        assert r["AP"] == res[0]["AP"] or all(
+            r["AP"][k] == v or v != v for k, v in res[0]["AP"].items())
+    n_img = sum(r["inference"]["images"] for r in res)
+    launches_c = {k: sum(r["launches"][k] for r in res) for k in ("forward", "backward")}
+    n_batches = sum(len(r["inference"]["batches"]) for r in res)
+    assert launches_c == {"forward": 2 * n_batches, "backward": 0}, launches_c
+    per_rank = [dict(images=r["inference"]["images"],
+                     ms_per_img=(r["inference"]["data_s"] + r["inference"]["compute_s"]) * 1e3
+                     / r["inference"]["images"],
+                     compute_ms_per_img=r["inference"]["compute_s"] * 1e3
+                     / r["inference"]["images"], wall_s=r["wall_s"]) for r in res]
+    summary["eval_world2_one_card_gloo"] = dict(
+        images=n_img, wall_s=wall, per_rank=per_rank, max_pred_diff=worst,
+        ap_equal=same_ap, launches=launches_c)
+    print(f"  8c --eval-only at world size 2 (gloo, two processes sharing one card): "
+          f"{n_img} images, {sum(len(v) for v in got.values())} gathered predictions equal "
+          f"phase 7's per image (max |diff| {worst:.1e}), AP dicts equal; per rank "
+          + "; ".join(f"{r['images']} images {r['ms_per_img']:.1f} ms/img (compute "
+                      f"{r['compute_ms_per_img']:.1f})" for r in per_rank)
+          + f"; wall {wall:.1f} s")
+    launches = {k: a["launches"][k] + launches_c[k]
+                + sum(r[k] for r in summary["two_ranks_one_card_gloo"]["launches"])
+                for k in ("forward", "backward")}
+    return summary, launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -953,32 +1407,36 @@ def main():
           f"{torch.cuda.get_device_name(0)}; TF32 off (cuDNN and matmul)")
 
     from omni3d_tpu_torch.ops import roi_align_cuda
-    print("[1/7] build")
+    print("[1/8] build")
     path, secs, log = roi_align_cuda.build()
     print(f"  {os.path.relpath(path, ROOT)} built in {secs:.1f} s")
     for line in log.splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print("  ptxas:", line.strip()[:160])
 
-    print("[2/7] forward kernel vs plain PyTorch version")
+    print("[2/8] forward kernel vs plain PyTorch version")
     main_case, worst = kernel_vs_plain(device)
 
-    print("[3/7] inference main path: DLA34-FPN inference at 512 px")
+    print("[3/8] inference main path: DLA34-FPN inference at 512 px")
     timings, launches = main_path(device)
 
-    print("[4/7] backward kernel vs plain PyTorch version")
+    print("[4/8] backward kernel vs plain PyTorch version")
     worst_bwd = bwd_vs_plain(device)
     at_train = time_kernels_at_train_shape(device)
 
-    print("[5/7] training main path: DLA34-FPN training steps at 512 px")
+    print("[5/8] training main path: DLA34-FPN training steps at 512 px")
     train_rows, train_launches, plain_cmp = train_path(device)
 
     with tempfile.TemporaryDirectory() as tmp:
-        print("[6/7] training entry point: tools.train_net on a synthetic Omni3D-format dataset")
+        print("[6/8] training entry point: tools.train_net on a synthetic Omni3D-format dataset")
         entry, entry_launches, weights = entry_point_path(device, tmp)
 
-        print("[7/7] evaluation: tools.train_net --eval-only on synthetic test splits")
+        print("[7/8] evaluation: tools.train_net --eval-only on synthetic test splits")
         evaluation, eval_launches = evaluation_path(device, tmp, weights)
+
+        print("[8/8] data parallelism: DDP over NCCL at world size 1, two ranks on the card "
+              "over gloo, --eval-only at world size 2")
+        distributed, ddp_launches = distributed_path(device, tmp, weights)
 
     bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "omni3d_tpu")]
     assert not bad, bad
@@ -986,6 +1444,7 @@ def main():
     print("training: " + json.dumps(dict(steps=train_rows, plain_pooler_step=plain_cmp)))
     print("training entry point: " + json.dumps(entry))
     print("evaluation: " + json.dumps(evaluation))
+    print("distributed: " + json.dumps(distributed))
     print(card)
     print(json.dumps({"kernels": [{
         "name": "multilevel_roi_align_fwd", "route": "cuda",
@@ -993,12 +1452,14 @@ def main():
         "replaces": "omni3d_tpu/ops/roi_align_pallas.py:658",
         "also_replaces": "omni3d_tpu/ops/roi_align_pallas.py:469",
         "launches": (launches + train_launches["forward"] + entry_launches["forward"]
-                     + eval_launches["forward"]),
+                     + eval_launches["forward"] + ddp_launches["forward"]),
         "launches_by_path": {"inference": launches, "training": train_launches["forward"],
                              "training_entry_point": entry_launches["forward"],
-                             "evaluation": eval_launches["forward"]},
+                             "evaluation": eval_launches["forward"],
+                             "distributed": ddp_launches["forward"]},
         "max_abs_err": max(worst, at_train["fwd_max_abs_err"],
-                           evaluation["roi_align_fwd_max_abs_err"]),
+                           evaluation["roi_align_fwd_max_abs_err"],
+                           distributed["two_ranks_one_card_gloo"]["fwd_max_abs_err"]),
         "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
         "bound_ms": main_case["bound_ms"], "bound_by": main_case["bound_by"],
         "library_ms": None,
@@ -1010,11 +1471,14 @@ def main():
         "name": "multilevel_roi_align_bwd", "route": "cuda",
         "source": "omni3d_tpu_torch/csrc/roi_align_bwd.cu",
         "replaces": "omni3d_tpu/ops/roi_align_bwd_pallas.py:61",
-        "launches": train_launches["backward"] + entry_launches["backward"],
+        "launches": (train_launches["backward"] + entry_launches["backward"]
+                     + ddp_launches["backward"]),
         "launches_by_path": {"training": train_launches["backward"],
                              "training_entry_point": entry_launches["backward"],
-                             "evaluation": eval_launches["backward"]},
-        "max_abs_err": max(worst_bwd, at_train["bwd_max_abs_err"]),
+                             "evaluation": eval_launches["backward"],
+                             "distributed": ddp_launches["backward"]},
+        "max_abs_err": max(worst_bwd, at_train["bwd_max_abs_err"],
+                           distributed["two_ranks_one_card_gloo"]["bwd_max_abs_err"]),
         "max_abs_err_train_shape": at_train["bwd_max_abs_err"],
         "ms": at_train["bwd_ms"], "plain_ms": at_train["bwd_plain_ms"],
         "bound_ms": at_train["bwd_bound_ms"], "bound_by": at_train["bwd_bound_by"],

@@ -10,18 +10,27 @@ batches: uint8 images go to the device and are normalised there
 generator seeded by (seed, step count), as the JAX package folds the step
 into a fixed key, and the loader replays its draws up to the resumed
 iteration, so a resumed run repeats an unbroken one (bit for bit on the
-CPU). Every LOG_PERIOD iterations the logs come to the host, go to
-metrics.json and the log line, and the stabilizer's exploded-iteration
-budget is checked; when it is spent the attempt fails and
-`train_with_retries` restarts from `model_recent`. Every TEST.EVAL_PERIOD
-iterations `eval_fn` evaluates the training model in eval mode, and its
-modes come back unchanged.
+CPU). Each iteration's logs stay on the device; every LOG_PERIOD iterations
+they come to the host in one copy, go to metrics.json (the latest values)
+and the log line (medians over the last 20 iterations), and the
+stabilizer's exploded-iteration budget is checked; when it is spent the
+attempt fails and `train_with_retries` restarts from `model_recent`. Every
+TEST.EVAL_PERIOD iterations `eval_fn` evaluates the training model in eval
+mode, and its modes come back unchanged.
+
+Under a process group (one process per GPU, `parallel.init_distributed`)
+each rank loads IMS_PER_BATCH / world images per step and the step runs
+data-parallel (`engine.train.make_train_step`); rank 0 alone writes the
+checkpoints (of the unwrapped model, so checkpoints of one and of N
+processes are interchangeable), metrics.json, the log line and the profile.
 
 Evaluation (port of the JAX package's `run_inference_dataset` and
 `do_test`; the reference's do_test, tools/train_net.py:56-114): inference
 over each DATASETS.TEST split on the model's device, TPU.EVAL_BATCH_SIZE
 images per batch, then the Omni3D AP2D / AP3D tables with IoU3D on the same
-device, files under <OUTPUT_DIR>/inference/iter_<N>/.
+device, files under <OUTPUT_DIR>/inference/iter_<N>/. Under a process group
+each rank runs inference on its shard of each split, every rank gathers
+all predictions and evaluates them, and rank 0 writes the files and prints.
 """
 from __future__ import annotations
 
@@ -40,6 +49,7 @@ from ..data.mapper import batch_to_device
 from ..evaluation.error_stats import compute_error_stats, error_log_string
 from ..evaluation.omni3d_eval import Omni3DEvaluationHelper, instances_to_predictions
 from ..models.rcnn3d import build_model, inference, inference_kwargs
+from ..parallel import dist as dist_lib
 from ..solver.build import build_lr_schedule, build_optimizer
 from ..utils import checkpoint as ckpt
 from ..utils.events import EventStorage
@@ -178,12 +188,17 @@ def run_inference_dataset(cfg, model, dataset_name, id_map):
     Batches of TPU.EVAL_BATCH_SIZE images from `build_detection_test_loader`
     go to the device as uint8, are normalised there and run through
     `models.rcnn3d.inference`; the outputs come back in one copy per batch.
-    timing: images, data_s (host time waiting for the loader), compute_s
-    (to the copy's end) and per batch [H, W, images, data ms, compute ms].
+    Under a process group the loader takes this rank's shard (every
+    world-th image), and every rank gets all predictions in rank order
+    (`parallel.gather_objects`), numbered 1..n in that order.
+    timing (this rank's): images, data_s (host time waiting for the
+    loader), compute_s (to the copy's end) and per batch [H, W, images,
+    data ms, compute ms].
     """
     device = next(model.parameters()).device
-    loader, n_total = build_detection_test_loader(cfg, dataset_name,
-                                                  batch_size=cfg.TPU.EVAL_BATCH_SIZE)
+    loader, n_total = build_detection_test_loader(
+        cfg, dataset_name, batch_size=cfg.TPU.EVAL_BATCH_SIZE,
+        process_index=dist_lib.process_index(), process_count=dist_lib.process_count())
     contig_to_dataset = {v: k for k, v in id_map.items()}
     kw = inference_kwargs(cfg)
     predictions, batches = [], []
@@ -218,6 +233,9 @@ def run_inference_dataset(cfg, model, dataset_name, id_map):
                   f"total {per_img:.4f} s/img  ETA {eta // 60}m{eta % 60:02d}s")
             t_last_log = now
         t0 = time.perf_counter()
+    predictions = dist_lib.gather_objects(predictions)
+    for i, p in enumerate(predictions):   # the ranks' id counters overlap after the gather
+        p["id"] = i + 1
     return predictions, dict(images=done, data_s=t_data, compute_s=t_compute, batches=batches)
 
 
@@ -231,11 +249,12 @@ def do_test(cfg, model, output_dir=None, iteration="final"):
     each dataset the per-instance error stats (xy/z/whl/ry vs the matched
     GT) are printed. Returns {dataset: AP dict with its "error_stats" and
     its "inference" timing, "summary": summarize_all()}.
+
+    Under a process group every rank evaluates the gathered predictions
+    (the same AP dicts on every rank); rank 0 alone writes the files, prints
+    and computes the error stats (the JAX package's do_test).
     """
-    if (torch.distributed.is_available() and torch.distributed.is_initialized()
-            and torch.distributed.get_world_size() > 1):
-        raise NotImplementedError("do_test runs in one process; gathering predictions across "
-                                  "processes waits for ROADMAP item 9")
+    main = dist_lib.process_index() == 0
     device = next(model.parameters()).device
     filter_settings = data_lib.get_filter_settings_from_cfg(cfg)
     id_map = data_lib.metadata("omni3d_model")["thing_dataset_id_to_contiguous_id"]
@@ -244,7 +263,7 @@ def do_test(cfg, model, output_dir=None, iteration="final"):
     helper = Omni3DEvaluationHelper(list(cfg.DATASETS.TEST), filter_settings, inference_dir,
                                     device=device)
     n_cats = max(len(id_map), 1)
-    if inference_dir is not None:
+    if inference_dir is not None and main:
         print("[eval] sample images with drawn detections wait for ROADMAP item 12 (vis); "
               "none are written")
     results = {}
@@ -253,29 +272,32 @@ def do_test(cfg, model, output_dir=None, iteration="final"):
         preds, timing = run_inference_dataset(cfg, model, name, id_map)
         gt_api = data_lib.Omni3D([data_lib.metadata(name)["json_file"]], dict(filter_settings))
         helper.add_predictions(name, preds, gt_api)
-        path = helper.save_predictions(name)
-        if path:
-            print(f"[eval] saved predictions -> {path}")
+        if main:
+            path = helper.save_predictions(name)
+            if path:
+                print(f"[eval] saved predictions -> {path}")
         t0 = time.perf_counter()
         results[name] = helper.evaluate(name)
         timing.update(evaluate_s=time.perf_counter() - t0,
                       ap_ready_s=time.perf_counter() - start)
-        print(f"[eval] {name}: " + "  ".join(
-            f"{k}={v:.2f}" for k, v in results[name].items() if k in ("AP2D", "AP3D")))
-        # per-dataset 3D error stats (reference train_net.py:102-107 ->
-        # vis.visualize_from_instances)
-        anns = [dict(a) for a in gt_api.dataset.get("annotations", [])]
-        for a in anns:  # raw Omni3D jsons carry the pose as R_cam
-            a.setdefault("pose", a.get("R_cam"))
-        Ks = {img["id"]: img["K"] for img in gt_api.dataset.get("images", []) if "K" in img}
-        stats = compute_error_stats(preds, anns, score_thresh=float(np.sqrt(1.0 / n_cats)), Ks=Ks)
-        print("[eval] " + error_log_string(name, stats, iteration))
-        results[name]["error_stats"] = stats
+        if main:
+            print(f"[eval] {name}: " + "  ".join(
+                f"{k}={v:.2f}" for k, v in results[name].items() if k in ("AP2D", "AP3D")))
+            # per-dataset 3D error stats (reference train_net.py:102-107 ->
+            # vis.visualize_from_instances)
+            anns = [dict(a) for a in gt_api.dataset.get("annotations", [])]
+            for a in anns:  # raw Omni3D jsons carry the pose as R_cam
+                a.setdefault("pose", a.get("R_cam"))
+            Ks = {img["id"]: img["K"] for img in gt_api.dataset.get("images", []) if "K" in img}
+            stats = compute_error_stats(preds, anns, score_thresh=float(np.sqrt(1.0 / n_cats)),
+                                        Ks=Ks)
+            print("[eval] " + error_log_string(name, stats, iteration))
+            results[name]["error_stats"] = stats
         results[name]["inference"] = timing
     results["summary"] = helper.summarize_all()
-    if inference_dir is not None:
+    if inference_dir is not None and main:
         helper.save_results()
-    if results["summary"]:
+    if results["summary"] and main:
         print_per_category_table(results["summary"])
         print("[eval] " + "  ".join(f"{k}={v:.2f}" for k, v in results["summary"].items()
                                     if k.endswith(("AP2D", "AP3D"))))
@@ -296,6 +318,30 @@ def eval_mode(model):
             m.training = mode
 
 
+class LogWindow:
+    """The logs of the iterations since the last log line. `add` keeps each
+    iteration's tensors stacked into one vector on the device (no sync) and
+    its host values (lr, finite) as they are; `flush` copies every kept
+    vector to the host in one copy and returns one {name: float} per
+    iteration, oldest first."""
+
+    def __init__(self):
+        self._rows = []
+
+    def add(self, logs: dict) -> None:
+        keys = [k for k, v in logs.items() if torch.is_tensor(v)]
+        self._rows.append((keys, torch.stack([logs[k].detach().float() for k in keys]),
+                           {k: float(v) for k, v in logs.items() if not torch.is_tensor(v)}))
+
+    def flush(self) -> list:
+        if not self._rows:
+            return []
+        values = torch.stack([vec for _, vec, _ in self._rows]).cpu().tolist()
+        out = [dict(zip(keys, vals), **host) for (keys, _, host), vals in zip(self._rows, values)]
+        self._rows.clear()
+        return out
+
+
 def do_train(cfg, output_dir: str, resume: bool = False, max_steps: int | None = None,
              records=None, priors=None, seed: int = 0,
              profile_dir: str | None = None, init_variables_fn=None, device="cuda",
@@ -312,7 +358,14 @@ def do_train(cfg, output_dir: str, resume: bool = False, max_steps: int | None =
       iterations with the training model in eval mode (`eval_mode`).
     The training visualisation waits for ROADMAP item 12: with VIS_PERIOD
     set, one line says so.
+    Under a process group every rank calls this with its own device; the
+    ranks load the same initial weights or checkpoint.
     """
+    rank, world = dist_lib.process_index(), dist_lib.process_count()
+    if cfg.SOLVER.IMS_PER_BATCH % world:
+        raise ValueError(f"SOLVER.IMS_PER_BATCH={cfg.SOLVER.IMS_PER_BATCH} is not divisible "
+                         f"by the {world} processes")
+    main = rank == 0
     device = torch.device(device)
     model = build_model(cfg, device=device, seed=seed, train=True)
     if priors is not None:
@@ -321,32 +374,36 @@ def do_train(cfg, output_dir: str, resume: bool = False, max_steps: int | None =
     scheduler = build_lr_schedule(cfg, optimizer)
     run = TrainRun(model, optimizer, scheduler, make_train_step(cfg, model, optimizer, scheduler),
                    start_iter=0)
+    dist_lib.barrier()   # a restart never reads a checkpoint that rank 0 is still writing
     loaded = ckpt.resume_or_load(output_dir, map_location=device) if resume else None
     if loaded is not None:
         state, extra = loaded
         load_train_state(run, state)
         run.start_iter = int(extra.get("iteration", 0)) + 1
-        print(f"[train] resumed from {os.path.join(output_dir, 'model_recent.ckpt')} "
-              f"at iteration {run.start_iter}")
+        if main:
+            print(f"[train] resumed from {os.path.join(output_dir, 'model_recent.ckpt')} "
+                  f"at iteration {run.start_iter}")
     elif init_variables_fn is not None:
         init_variables_fn(model)
     start_iter, step = run.start_iter, run.step
 
-    if cfg.VIS_PERIOD > 0:
+    if cfg.VIS_PERIOD > 0 and main:
         print(f"[train] VIS_PERIOD={cfg.VIS_PERIOD}: training visualisation waits for "
               "ROADMAP item 12; no images are written")
 
     loader = build_detection_train_loader(cfg, records=records, seed=seed,
-                                          skip_batches=start_iter)
+                                          skip_batches=start_iter, process_index=rank,
+                                          process_count=world)
     max_iter = max_steps or cfg.SOLVER.MAX_ITER
     period = cfg.SOLVER.CHECKPOINT_PERIOD
     checkpointer = ckpt.PeriodicCheckpointer(output_dir, period, max_iter)
-    storage = EventStorage(output_dir, start_iter=start_iter)
+    storage = EventStorage(output_dir if main else None, start_iter=start_iter)
+    window = LogWindow()
     skipped0 = step.state["skipped"]
     profile = None
     try:
         for iteration in range(start_iter, max_iter):
-            if profile_dir and iteration == start_iter + PROFILE_STEPS[0]:
+            if profile_dir and main and iteration == start_iter + PROFILE_STEPS[0]:
                 profile = _StepProfile(profile_dir, device, len(run.iterations))
             if profile is not None and iteration == start_iter + PROFILE_STEPS[1]:
                 profile.stop(len(run.iterations))
@@ -356,7 +413,7 @@ def do_train(cfg, output_dir: str, resume: bool = False, max_steps: int | None =
             t1 = time.perf_counter()
             batch = batch_to_device(host_batch, device, cfg.MODEL.PIXEL_MEAN,
                                     cfg.MODEL.PIXEL_STD)
-            logs = step(batch, step_generator(seed, step.state["step"]))
+            window.add(step(batch, step_generator(seed, step.state["step"])))
             run.iterations.append(iteration)
             run.data_ms.append((t1 - t0) * 1e3)
             run.step_ms.append((time.perf_counter() - t1) * 1e3)
@@ -364,14 +421,15 @@ def do_train(cfg, output_dir: str, resume: bool = False, max_steps: int | None =
 
             last = iteration == max_iter - 1
             if iteration % LOG_PERIOD == 0 or last:
-                host_logs = {k: float(v.detach() if torch.is_tensor(v) else v)   # device sync
-                             for k, v in logs.items()}
-                for k, v in host_logs.items():
-                    storage.put_scalar(k, v)
-                storage.put_scalar("time/data_ms", run.data_ms[-1])
-                storage.put_scalar("time/step_ms", run.step_ms[-1])
-                print("[train] " + storage.log_line(max_iter, lr=host_logs["lr"]))
-                storage.write()
+                rows = window.flush()   # device sync
+                if main:
+                    for row in rows:
+                        for k, v in row.items():
+                            storage.put_scalar(k, v)
+                    storage.put_scalar("time/data_ms", run.data_ms[-1])
+                    storage.put_scalar("time/step_ms", run.step_ms[-1])
+                    print("[train] " + storage.log_line(max_iter, lr=rows[-1]["lr"]))
+                    storage.write()
 
                 # exploded-iteration budget -> restart from checkpoint
                 # (reference train_net.py:253-285: cumulative per attempt, armed
@@ -379,11 +437,13 @@ def do_train(cfg, output_dir: str, resume: bool = False, max_steps: int | None =
                 exploded = step.state["skipped"] - skipped0
                 done = iteration - start_iter + 1
                 if done > period // 2 and exploded / done >= cfg.MODEL.STABILIZE > 0:
-                    print(f"[train] unstable: {exploded}/{done} exploded "
-                          f"iterations; restarting from checkpoint")
+                    if main:
+                        print(f"[train] unstable: {exploded}/{done} exploded "
+                              f"iterations; restarting from checkpoint")
                     return False, run
             storage.step()
-            checkpointer.step(iteration, lambda: train_state(run), {"iteration": iteration})
+            if main:
+                checkpointer.step(iteration, lambda: train_state(run), {"iteration": iteration})
             if (eval_fn is not None and cfg.TEST.EVAL_PERIOD > 0
                     and (iteration + 1) % cfg.TEST.EVAL_PERIOD == 0):
                 with eval_mode(model):
@@ -404,5 +464,6 @@ def train_with_retries(cfg, output_dir, **kwargs):
         ok, run = do_train(cfg, output_dir, resume=(attempt > 0) or resume, **kwargs)
         if ok:
             return run
-        print(f"[train] attempt {attempt + 1} failed; retrying")
+        if dist_lib.process_index() == 0:
+            print(f"[train] attempt {attempt + 1} failed; retrying")
     raise RuntimeError("Training diverged in all attempts")

@@ -1,17 +1,22 @@
-"""The Cube R-CNN training step, single device (port of
-`omni3d_tpu.engine.train`: `compute_losses` and `make_train_step` with
-mesh=None).
+"""The Cube R-CNN training step (port of `omni3d_tpu.engine.train`:
+`compute_losses` and `make_train_step`, on one device or data-parallel
+across the processes of a process group).
 
 `compute_losses` runs the whole training forward: features, the RPN head,
 anchor labelling and the RPN losses, detached proposal selection, proposal
 sampling, ONE pooler call over the concatenated box and cube RoIs (so one
 forward and one backward kernel launch per step), the box branch with the
 FastRCNN losses, and the cube branch with `decode_cube` and the cube losses.
-`make_train_step` adds the backward, the stabilizer and the optimizer.
+`make_train_step` adds the backward, the stabilizer and the optimizer;
+under a process group it follows the JAX step's shard_map (train.py:284-398)
+through `DistributedDataParallel`.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
+from torch.nn.parallel import DistributedDataParallel
 
 from ..models.heads import decode_cube, scale_proposals
 from ..models.layers import BatchNorm2d
@@ -19,6 +24,7 @@ from ..models.rcnn3d import FEATURE_NAMES, FEATURE_STRIDES, CubeRCNN
 from ..models.roi_training import cube_losses, fast_rcnn_losses, label_and_sample_proposals
 from ..models.rpn import label_and_sample_anchors, rpn_losses, select_proposals
 from ..ops.roi_align_cuda import multilevel_roi_align
+from ..parallel import dist as dist_lib
 from ..solver.build import clip_gradients, lr_factor
 
 TOLERANCE = 4.0  # loss-spike skip threshold (reference train_net.py:164)
@@ -184,6 +190,20 @@ def _stabilizer(total, recent_loss, grad_finite):
     return loss_diverging | ~grad_finite, new_recent
 
 
+class LossModule(torch.nn.Module):
+    """`compute_losses` as a module's forward. DistributedDataParallel
+    prepares its gradient reduction in `forward`, and `compute_losses`
+    calls the model's parts directly, never `model.forward`: so DDP wraps
+    this module, not the model."""
+
+    def __init__(self, model: CubeRCNN):
+        super().__init__()
+        self.model = model
+
+    def forward(self, batch, generator=None, noise=None, img_offset: int = 0):
+        return compute_losses(self.model, batch, generator, noise, img_offset)
+
+
 def make_train_step(cfg, model: CubeRCNN, optimizer: torch.optim.Optimizer,
                     scheduler, stabilize: bool = True):
     """Build step(batch, generator=None, noise=None) -> logs, updating the
@@ -195,6 +215,20 @@ def make_train_step(cfg, model: CubeRCNN, optimizer: torch.optim.Optimizer,
     back) and the optimizer state (including the LR schedule's count, as
     optax's schedule count stays with the restored state) exactly as they
     were; the step count and `skipped` advance.
+
+    Under a process group (the JAX step with a mesh) each rank runs the step
+    on its local batch, whose image i is global image rank x B + i for the
+    sampling noise. The losses go through `DistributedDataParallel`
+    (`broadcast_buffers=False`: train-mode BN normalises by the rank-local
+    batch, as in shard_map; `static_graph=True`: the same parameters, the
+    DLA trees' unused projections among them, go without a gradient every
+    step, and DDP learns which from the first step instead of searching the
+    graph after every forward). DDP averages the gradients; the loss dict,
+    the metrics and the total are averaged in one fused all-reduce before
+    the stabilizer, so every rank takes the same skip decision; an accepted
+    step averages the BN running statistics over the ranks (the JAX step's
+    pmean of the new batch statistics). Without a process group: no
+    wrapper and no collective.
     """
     stabilize_on = stabilize and cfg.MODEL.STABILIZE > 0
     params = [p for group in optimizer.param_groups for p in group["params"]]
@@ -203,15 +237,31 @@ def make_train_step(cfg, model: CubeRCNN, optimizer: torch.optim.Optimizer,
                 for b in (m.running_mean, m.running_var)]
     state = {"step": 0, "skipped": 0,
              "recent_loss": torch.full((), -1.0, device=device)}   # < 0: not yet set
+    distributed = dist_lib.process_group_active()
+    rank = dist_lib.process_index()
+    if distributed:
+        losses_fn = DistributedDataParallel(
+            LossModule(model), device_ids=[device] if device.type == "cuda" else None,
+            broadcast_buffers=False, static_graph=True)
+    else:
+        losses_fn = functools.partial(compute_losses, model)
 
     def step(batch, generator=None, noise=None):
         saved = [b.clone() for b in bn_stats] if stabilize_on else []
         optimizer.zero_grad(set_to_none=False)
-        total, losses, metrics = compute_losses(model, batch, generator, noise)
+        total, losses, metrics = losses_fn(batch, generator, noise,
+                                           rank * batch["images"].shape[0])
         total.backward()
         for p in params:   # parameters the forward never reached (e.g. the DLA
             if p.grad is None:   # trees' unused projections): zero, as JAX's grads
                 p.grad = torch.zeros_like(p)
+        if distributed:   # one fused all-reduce of the logs (JAX train.py:323-329)
+            names = list(losses) + list(metrics)
+            means = dist_lib.mean_across_ranks(
+                [total.detach()] + [v.detach() for v in losses.values()] + list(metrics.values()))
+            total = means[0]
+            losses = dict(zip(names[:len(losses)], means[1:1 + len(losses)]))
+            metrics = dict(zip(names[len(losses):], means[1 + len(losses):]))
         ok = True
         if stabilize_on:
             # max-abs norms: inf or NaN exactly when an element is (no overflow)
@@ -222,6 +272,9 @@ def make_train_step(cfg, model: CubeRCNN, optimizer: torch.optim.Optimizer,
             ok = not bool(diverging)   # the step's one host sync: the skip decision
         lr = cfg.SOLVER.BASE_LR * lr_factor(cfg, state["step"])
         if ok:
+            if distributed:
+                for b, m in zip(bn_stats, dist_lib.mean_across_ranks(bn_stats)):
+                    b.copy_(m)
             clip_gradients(cfg, params)
             optimizer.step()
             scheduler.step()

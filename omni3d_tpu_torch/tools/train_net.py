@@ -3,7 +3,8 @@ tools/train_net.py, same flags).
 
     python -m omni3d_tpu_torch.tools.train_net --config-file configs/cubercnn_DLA34_FPN.yaml \
         --datasets-root datasets/Omni3D [--eval-only] [--resume] [--max-steps N] \
-        [--weights PATH] [--profile-dir DIR] [--device cuda|cpu] [KEY VALUE ...]
+        [--weights PATH] [--profile-dir DIR] [--device cuda|cpu]
+        [--dist-init HOST:PORT --num-processes N --process-id I] [KEY VALUE ...]
 
 `--datasets-root` holds the Omni3D jsons (<name>.json for every name in
 DATASETS.TRAIN and DATASETS.TEST) and stats.json; image paths in the jsons
@@ -22,19 +23,34 @@ DLA weights found by `utils.model_zoo.find_imagenet_weights`.
 (the same three kinds of file) and evaluates it on DATASETS.TEST: AP2D /
 AP3D per dataset and across them, with predictions and results under
 OUTPUT_DIR/inference/iter_final/. Both run on the CUDA card unless
-`--device cpu` is given. Multi-process training and evaluation wait for
-ROADMAP item 9.
+`--device cpu` is given.
+
+Multi-process training and evaluation run one process per GPU, each started
+with the same arguments and its own `--process-id` (0..N-1):
+`--dist-init HOST:PORT` is rank 0's address (the JAX CLI's flag; a full
+init URL such as `file:///shared/store` also works), `--num-processes` N.
+Rank i runs on `cuda:(i % torch.cuda.device_count())` (or the CPU with
+`--device cpu`, over gloo). Each rank loads SOLVER.IMS_PER_BATCH / N images
+per step and the gradients are averaged (DistributedDataParallel);
+TPU.MESH_DATA, when positive, must equal N. Rank 0 writes
+category_meta.json, the checkpoints, metrics.json and the evaluation files;
+evaluation shards each test split across the ranks and gathers the
+predictions on every rank. The JAX package instead runs one process per
+host over all of its devices.
 """
 from __future__ import annotations
 
 import argparse
 import os
 
+import torch
+
 from ..config import get_default_cfg, validate_cfg
 from ..data import datasets as data_lib
 from ..data.build import get_detection_dataset_dicts
 from ..engine.loop import do_test, train_with_retries
 from ..models.rcnn3d import build_model
+from ..parallel import dist as dist_lib
 from ..utils import checkpoint as ckpt_lib
 from ..utils import model_zoo
 from ..utils.priors import compute_priors, priors_to_params
@@ -58,9 +74,16 @@ def parse_args(argv=None):
     p.add_argument("--profile-dir", default=None,
                    help="write a torch.profiler trace of training steps 10-14 here")
     p.add_argument("--device", default="cuda", help="torch device (default: the CUDA card)")
+    p.add_argument("--dist-init", default=None,
+                   help="multi-process: rank 0's HOST:PORT (or an init URL such as file://...)")
+    p.add_argument("--num-processes", type=int, default=None)
+    p.add_argument("--process-id", type=int, default=None)
     p.add_argument("opts", nargs=argparse.REMAINDER,
                    help="config overrides: KEY VALUE ...")
-    return p.parse_args(argv)
+    args = p.parse_args(argv)
+    if args.dist_init and (args.num_processes is None or args.process_id is None):
+        p.error("--dist-init needs --num-processes and --process-id")
+    return args
 
 
 def setup(args):
@@ -135,30 +158,56 @@ def make_train_init_fn(args, cfg):
 
 def main(argv=None):
     """Train, or evaluate with --eval-only; returns the last training
-    attempt's `engine.loop.TrainRun`, or `engine.loop.do_test`'s results."""
+    attempt's `engine.loop.TrainRun`, or `engine.loop.do_test`'s results.
+    With --dist-init this process joins the process group first and leaves
+    it at the end; a caller that already joined one (e.g. over gloo, for
+    several ranks on one card) passes no --dist-init and its group is
+    used."""
     args = parse_args(argv)
+    device = args.device
+    if args.dist_init:
+        if device == "cuda" and torch.cuda.is_available():
+            device = f"cuda:{args.process_id % torch.cuda.device_count()}"
+        device = dist_lib.init_distributed(args.dist_init, args.num_processes,
+                                           args.process_id, device)
+        try:
+            return _run(args, device)
+        finally:
+            torch.distributed.destroy_process_group()
+    return _run(args, device)
+
+
+def _run(args, device):
     cfg, filter_settings, root = setup(args)
+    dist_lib.check_world(cfg)
+    main_rank = dist_lib.process_index() == 0
     output_dir = cfg.OUTPUT_DIR
     os.makedirs(output_dir, exist_ok=True)
 
-    # model category metadata (reference main:384)
-    data_lib.register_and_store_model_metadata(output_dir, filter_settings,
-                                               os.path.join(root, "stats.json"))
+    # model category metadata (reference main:384): rank 0 writes it, the
+    # others read it
+    stats = os.path.join(root, "stats.json")
+    if main_rank:
+        data_lib.register_and_store_model_metadata(output_dir, filter_settings, stats)
+    dist_lib.barrier()
+    if not main_rank:
+        data_lib.register_and_store_model_metadata(output_dir, filter_settings, stats)
 
     def evaluate(model, iteration):
         results = do_test(cfg, model, output_dir, iteration=iteration)
-        print_ap_analysis_table({k: v for k, v in results.items() if k != "summary"})
+        if main_rank:
+            print_ap_analysis_table({k: v for k, v in results.items() if k != "summary"})
         return results
 
     if args.eval_only:
-        model = build_model(cfg, device=args.device, seed=max(cfg.SEED, 0))
+        model = build_model(cfg, device=device, seed=max(cfg.SEED, 0))
         path = args.weights or cfg.MODEL.WEIGHTS
         if path:
             load_weights(model, path)
         else:
             print("[weights] no --weights or MODEL.WEIGHTS: evaluating seeded random weights")
         results = evaluate(model, "final")
-        if results["summary"]:
+        if results["summary"] and main_rank:
             print_cross_dataset_table(results["summary"])
         return results
 
@@ -174,10 +223,11 @@ def main(argv=None):
     run = train_with_retries(
         cfg, output_dir, resume=args.resume, max_steps=args.max_steps, records=records,
         priors=priors, profile_dir=args.profile_dir, seed=max(cfg.SEED, 0),
-        init_variables_fn=make_train_init_fn(args, cfg), device=args.device,
+        init_variables_fn=make_train_init_fn(args, cfg), device=device,
         eval_fn=evaluate if cfg.DATASETS.TEST else None,
     )
-    print("[train] finished")
+    if main_rank:
+        print("[train] finished")
     return run
 
 

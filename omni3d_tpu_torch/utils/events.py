@@ -14,6 +14,8 @@ import os
 import time
 from collections import defaultdict, deque
 
+import numpy as np
+
 
 def _make_tb_writer(output_dir: str):
     """SummaryWriter into <output_dir>/tb, or None if tensorboard is absent."""
@@ -24,7 +26,7 @@ def _make_tb_writer(output_dir: str):
     return SummaryWriter(os.path.join(output_dir, "tb"))
 
 
-WINDOW = 20   # iterations the log line's medians cover
+WINDOW = 20   # values the log line's medians cover (`engine.loop` puts every iteration's)
 
 
 class EventStorage:
@@ -48,8 +50,8 @@ class EventStorage:
         self._written.discard(name)
 
     def median(self, name):
-        h = sorted(self._history[name])
-        return h[len(h) // 2] if h else float("nan")
+        h = self._history[name]
+        return float(np.median(h)) if h else float("nan")
 
     def write(self):
         if self._file:

@@ -1,5 +1,6 @@
 """The CUDA ROIAlign kernels (forward and backward) vs their plain PyTorch
-versions, the training entry point and the evaluation's IoU3D, on the card.
+versions, the training entry point, a one-rank NCCL step and the
+evaluation's IoU3D, on the card.
 
 These tests need a CUDA device and skip without one. They import no JAX, so
 they run on a machine without it; there, skip tests/conftest.py (it imports
@@ -296,3 +297,44 @@ def test_gt_echo_evaluation_on_the_card(device):
             ev.evaluate()
             ev.accumulate()
             assert ev.summarize()[f"AP{mode}"] == 100.0, (mode, prox)
+
+
+@pytest.mark.cuda
+def test_one_rank_over_nccl_steps_as_without_a_process_group(device):
+    """A process group of one over NCCL (`parallel.init_distributed` with a
+    HOST:PORT address): `make_train_step` runs the losses under DDP. One f32
+    step from the same seeded weights, batch and noise gives the losses (rel
+    1e-4) and the gradients (1e-3 of each tensor's largest) of the step
+    without a process group, with one forward and one backward kernel
+    launch."""
+    from omni3d_tpu_torch.config import get_default_cfg
+    from omni3d_tpu_torch.parallel import dist as dist_lib
+    from omni3d_tpu_torch.tools.synthetic import synthetic_trainer
+
+    cfg = get_default_cfg()
+    cfg.merge_from_list(["MODEL.ROI_HEADS.NUM_CLASSES", "5", "MODEL.FPN.OUT_CHANNELS", "64",
+                         "MODEL.ROI_BOX_HEAD.FC_DIM", "128", "MODEL.ROI_CUBE_HEAD.FC_DIM", "128",
+                         "TPU.COMPUTE_DTYPE", "float32"])
+
+    def one_step():
+        model, _, step, batch = synthetic_trainer(cfg, torch.float32, 2, device, img=256)
+        before = (multilevel_roi_align.launches, multilevel_roi_align.bwd_launches)
+        logs = step(batch, torch.Generator().manual_seed(0))
+        torch.cuda.synchronize()
+        assert (multilevel_roi_align.launches - before[0],
+                multilevel_roi_align.bwd_launches - before[1]) == (1, 1)
+        return ({k: float(v) for k, v in logs.items()},
+                {n: p.grad.clone() for n, p in model.named_parameters()})
+
+    plain = one_step()
+    dist_lib.init_distributed(f"127.0.0.1:{dist_lib.free_port()}", 1, 0, device)
+    try:
+        assert dist_lib.process_group_active() and dist_lib.process_count() == 1
+        ddp = one_step()
+    finally:
+        torch.distributed.destroy_process_group()
+    assert ddp[0]["finite"] == plain[0]["finite"] == 1.0
+    for k, v in plain[0].items():
+        assert abs(ddp[0][k] - v) <= 1e-4 * abs(v) + 1e-7, k
+    for n, g in plain[1].items():
+        assert float((ddp[1][n] - g).abs().max()) <= 1e-3 * float(g.abs().max()) + 1e-6, n

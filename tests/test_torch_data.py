@@ -356,15 +356,21 @@ def test_prefetch_close_stops_thread_and_raises_errors():
     assert not p._thread.is_alive()
 
 
-@pytest.mark.parametrize("batch_size", [1, 3])
-def test_test_loader_matches_jax(port_ds, batch_size):
+@pytest.mark.parametrize("batch_size, process_index, process_count", [
+    pytest.param(1, 0, 1, id="1"), pytest.param(3, 0, 1, id="3"),
+    pytest.param(1, 1, 2, id="1-rank1of2"), pytest.param(3, 0, 2, id="3-rank0of2"),
+    pytest.param(1, 1, 3, id="1-rank1of3"), pytest.param(3, 2, 3, id="3-rank2of3")])
+def test_test_loader_matches_jax(port_ds, batch_size, process_index, process_count):
+    """Each rank's shard (every process_count-th record) equals the JAX
+    loader's for the same rank."""
     jcfg, tcfg = _cfgs()
     records = _records(tds, port_ds)
+    shard = dict(process_index=process_index, process_count=process_count)
     jl, jn = jbuild.build_detection_test_loader(jcfg, "x", records=records,
-                                                batch_size=batch_size)
+                                                batch_size=batch_size, **shard)
     tl, tn = tbuild.build_detection_test_loader(tcfg, "x", records=records,
-                                                batch_size=batch_size)
-    assert jn == tn
+                                                batch_size=batch_size, **shard)
+    assert jn == tn == len(records[process_index::process_count]) > 0
     n = 0
     for (wb, wr), (gb, gr) in zip(jl, tl):
         assert wr == gr
@@ -373,4 +379,4 @@ def test_test_loader_matches_jax(port_ds, batch_size):
             assert torch.equal(dev[k], torch.from_numpy(wb[k])), k
         n += 1
     assert n == len(list(jbuild.build_detection_test_loader(
-        jcfg, "x", records=records, batch_size=batch_size)[0]))
+        jcfg, "x", records=records, batch_size=batch_size, **shard)[0]))

@@ -18,7 +18,8 @@ def test_port_modules_load_no_jax():
     assert "omni3d_tpu_torch.tools.train_net" in mods and "omni3d_tpu_torch.data.image" in mods
     assert {"omni3d_tpu_torch.evaluation.omni3d_eval", "omni3d_tpu_torch.evaluation.native",
             "omni3d_tpu_torch.evaluation.error_stats", "omni3d_tpu_torch.ops.iou3d",
-            "omni3d_tpu_torch.vis.logperf", "omni3d_tpu_torch.tools.bench_eval"} <= set(mods)
+            "omni3d_tpu_torch.vis.logperf", "omni3d_tpu_torch.tools.bench_eval",
+            "omni3d_tpu_torch.parallel", "omni3d_tpu_torch.parallel.dist"} <= set(mods)
     for p in (ROOT / "omni3d_tpu_torch").rglob("*.py"):
         text = p.read_text()
         assert '"native"' not in text and "native/" not in text, p

@@ -179,3 +179,37 @@ def test_retry_restarts_from_model_recent(data_root, tmp_path, monkeypatch, caps
     assert "resumed from" in log and run.start_iter == 2 and run.iterations == [2, 3]
     assert run.step.state["skipped"] == 0 and calls["n"] == 6
     assert tckpt.load_checkpoint(str(tmp_path / "model_final.ckpt"))[1] == {"iteration": 3}
+
+
+def test_log_line_prints_medians_of_the_last_20_iterations(data_root, tmp_path, monkeypatch,
+                                                            capsys):
+    """42 iterations of a stand-in step whose logs are known tensors: the
+    log lines at iterations 20, 40 and 41 print np.median of the last 20
+    iterations' values (the window the reference's printer takes), and
+    metrics.json keeps each logged iteration's own values."""
+    values = np.float32([(i * 37) % 101 / 4 for i in range(42)])
+
+    def make_train_step(cfg, model, optimizer, scheduler):
+        state = {"step": 0, "skipped": 0, "recent_loss": torch.full((), -1.0)}
+
+        def step(batch, generator=None, noise=None):
+            v = torch.tensor(values[state["step"]])
+            state["step"] += 1
+            return {"rpn/cls": v, "total_loss": 2 * v, "lr": 0.01, "finite": 1.0}
+        step.state = state
+        return step
+    monkeypatch.setattr(tloop, "make_train_step", make_train_step)
+    train_net.main(_argv(data_root, tmp_path, 42, **{"SOLVER.CHECKPOINT_PERIOD": "100"}))
+    lines = {int(line.split("iter: ")[1].split("/")[0]): line
+             for line in capsys.readouterr().out.splitlines() if line.startswith("[train] iter:")}
+    assert sorted(lines) == [0, 20, 40, 41]
+    for it in lines:
+        window = values[max(it - 19, 0):it + 1]
+        assert f"rpn/cls: {np.median(window):.4f}" in lines[it], (it, lines[it])
+        assert f"total_loss: {np.median(2 * window):.4f}" in lines[it], (it, lines[it])
+    assert f"rpn/cls: {np.median(values[1:21]):.4f}" != f"rpn/cls: {values[20]:.4f}"
+    logged = _metrics(tmp_path)
+    assert [r["iteration"] for r in logged] == [0, 20, 40, 41]
+    for r in logged:
+        assert r["rpn/cls"] == float(values[r["iteration"]])
+        assert r["total_loss"] == float(2 * values[r["iteration"]])
