@@ -12,9 +12,13 @@ Phases (each raises on failure):
      both routings, sampling_ratio 0 and 2, float32 and bfloat16, with times;
   3. inference main path: full-width DLA34-FPN Cube R-CNN inference at
      512 px (configs/cubercnn_DLA34_FPN.yaml, seeded random weights) at
-     batch 1 and 8, float32 with TF32 off and bfloat16: exactly two forward
-     and no backward launches per call, output contract and sanity checks,
-     ms per batch; then one float32 call with the plain pooler;
+     batch 1 and 8, float32 with TF32 off and bfloat16, the 6D pose bias at
+     the identity (`condition_pose_bias_`, as the training path does at
+     random weights): exactly two forward and no backward launches per
+     call, output contract and sanity checks, ms per batch; then one float32
+     call with the plain pooler (pooled features within phase 2's tolerance
+     times max(1, largest pooled magnitude), scores within 1e-4, boxes
+     within 1e-2 px);
   4. the backward kernel vs the plain backward at the training path's
      shapes (B = 2, N = 640 per image), both routings, sampling_ratio 0 and
      2, float32 and bfloat16, the transpose identity, with times (the
@@ -67,15 +71,37 @@ Phases (each raises on failure):
      gradients averaged, one optimizer step): parameters within 1e-3 of the
      largest update per tensor and bit-equal across the ranks, BN statistics
      the mean of the halves', losses rel 1e-4; each rank's first pooler call
-     held against the plain forward and backward; (c) `--eval-only` with
+     held against the plain forward and backward (the backward on the
+     recorded gradient scaled by a power of two to unit size); (c) `--eval-only` with
      phase 6's checkpoint at world size 2 (gloo, both ranks on the card) on
      SUNRGBD_test at batch 1: per image the gathered predictions equal phase
      7's (scores and boxes within 1e-5), the AP dicts equal, ms per image per
-     rank. 8b's and 8c's times are two processes sharing one card.
+     rank. 8b's and 8c's times are two processes sharing one card;
+  9. the other backbones at full width (50 classes, FPN 256, FC 1024, 512
+     px, seeded random weights, f32 with TF32 off): (a) ResNet34-FPN
+     (configs/cubercnn_ResNet34_FPN.yaml) as phases 3 and 5-7 drive DLA-34:
+     inference in f32 and bf16 at batch 1 and 8 (two forward launches per
+     call, the f32 box pooler through the kernel vs the plain pooler as in
+     phase 3), the bf16
+     batch-32 training step (median of 5 after 2 warm-ups, one forward and
+     one backward launch per step, both kernels held against their plain
+     versions on the first step's pooler call as in 8b, peak memory, and
+     again with
+     TPU.REMAT_BACKBONE), `tools.train_net` for 8 bf16 batch-8 iterations
+     on phase 6's dataset and `--eval-only` with its model_final.ckpt on
+     phase 7's SUNRGBD_test at batch 8 (finite losses, the result files, an
+     AP dict), beside phase 3's and 5's DLA-34 bf16 numbers from this card;
+     (b) ResNet-18/50/101, DenseNet-121, MNASNet-1.0, ShuffleNetV2-x1.0 and
+     the nine other DLA variants: one bf16 batch-8 inference (two forward
+     launches, `check_outputs`) and one bf16 batch-8 training step (one
+     forward and one backward launch, finite losses) each, with build and
+     warm-up seconds, ms and peak memory; inference models with the pose
+     bias as in phase 3. It prints the `backbones:` JSON line.
 The line before the last is the kernel summary as JSON; the last line is
 {"ok": true, "device": {...}}.
 """
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -417,18 +443,35 @@ def check_outputs(out, bs, topk, C):
     assert bool(out["valid"].any()), "no detection passed the score threshold"
 
 
-def main_path(device):
+def _config(name, *opts):
+    """The port's config of configs/<name> with `KEY VALUE` overrides."""
+    from omni3d_tpu_torch.config import get_default_cfg
+    cfg = get_default_cfg()
+    cfg.merge_from_file(os.path.join(ROOT, "configs", name))
+    cfg.merge_from_list(list(opts))
+    return cfg
+
+
+def main_path(device, config="cubercnn_DLA34_FPN.yaml"):
+    """Full-width inference of `config` at 512 px: f32 and bf16 at BATCHES,
+    two forward launches per call, then one f32 call with the kernel and
+    one with the plain pooler. The pooled features are held to phase 2's
+    tolerance times max(1, largest pooled magnitude) (f32 sums err in
+    proportion to their size, and some trunks' random-weight maps are far
+    from unit scale); scores and boxes to fixed tolerances. The 6D pose bias
+    starts at the identity (`condition_pose_bias_`: a detection clipped to
+    zero height pools zero features, and the zero bias then decodes to an
+    all-zero pose). Returns (timings, launches, kernel-vs-plain errors)."""
     import torch
     import numpy as np
-    from omni3d_tpu_torch.config import get_default_cfg
     from omni3d_tpu_torch.models import rcnn3d
     from omni3d_tpu_torch.ops.roi_align_cuda import multilevel_roi_align
+    from omni3d_tpu_torch.tools.synthetic import condition_pose_bias_
 
-    cfg = get_default_cfg()
-    cfg.merge_from_file(os.path.join(ROOT, "configs", "cubercnn_DLA34_FPN.yaml"))
+    cfg = _config(config)
     kw = rcnn3d.inference_kwargs(cfg)
     C = cfg.MODEL.ROI_HEADS.NUM_CLASSES
-    print(f"  config cubercnn_DLA34_FPN.yaml: {C} classes, FPN {cfg.MODEL.FPN.OUT_CHANNELS}, "
+    print(f"  config {config}: {C} classes, FPN {cfg.MODEL.FPN.OUT_CHANNELS}, "
           f"FC {cfg.MODEL.ROI_BOX_HEAD.FC_DIM}; inference_kwargs {kw}")
 
     def inputs(bs):
@@ -443,6 +486,7 @@ def main_path(device):
     multilevel_roi_align.bwd_launches = 0
     for dtype in (torch.float32, torch.bfloat16):
         model = rcnn3d.build_model(cfg, device=device, dtype=dtype, seed=0)
+        condition_pose_bias_(model)
         models[dtype] = model
         for bs, iters in BATCHES:
             images, Ks, ratio = inputs(bs)
@@ -494,8 +538,12 @@ def main_path(device):
             rcnn3d.multilevel_roi_align = multilevel_roi_align
     (ko, kseen), (po, pseen) = outs["kernel"], outs["plain"]
     pooled_err = float((kseen[0] - pseen[0]).abs().max())
-    print(f"  f32 bs={PLAIN_BS} box-pooler features, kernel vs plain pooler: max|diff| {pooled_err:.3e}")
-    assert pooled_err <= F32_ATOL, pooled_err
+    pooled_max = float(pseen[0].abs().max())
+    scale = max(1.0, pooled_max)
+    print(f"  f32 bs={PLAIN_BS} box-pooler features, kernel vs plain pooler: max|diff| "
+          f"{pooled_err:.3e} (tol {F32_ATOL * scale:.1e}; largest |pooled| {pooled_max:.3e})")
+    assert pooled_err <= F32_ATOL * scale, pooled_err
+    errs = {}
     same = bool(torch.equal(ko["valid"], po["valid"]) and torch.equal(ko["classes"], po["classes"]))
     if same:
         errs = {k: float((ko[k].float() - po[k].float()).abs().max())
@@ -505,7 +553,8 @@ def main_path(device):
     else:
         n = int((ko["valid"] != po["valid"]).sum() + (ko["classes"] != po["classes"]).sum())
         print(f"  final outputs: valid/classes differ in {n} detections (f32 ties flip)")
-    return timings, launches
+    return timings, launches, dict(pooled_max_abs_err=pooled_err, pooled_max_abs=pooled_max,
+                                   tol=F32_ATOL * scale, final_outputs=errs)
 
 
 def plain_pool(features, boxes, strides, out_size, sampling_ratio, min_level=2,
@@ -937,6 +986,64 @@ def pooler_vs_plain(seen, bs):
     return rows
 
 
+def _launch_counts():
+    from omni3d_tpu_torch.ops.roi_align_cuda import multilevel_roi_align
+    return multilevel_roi_align.launches, multilevel_roi_align.bwd_launches
+
+
+def _first_pooler_call_checked(train_mod, record):
+    """A stand-in for `engine.train.multilevel_roi_align` that calls the
+    kernel's wrapper and keeps, of its first call, the inputs, the output
+    and the gradient that reaches the output in the backward in `record`."""
+    real = train_mod.multilevel_roi_align
+
+    def spy(features, boxes, strides, out_size, sampling_ratio=0, min_level=2,
+            routing="canonical"):
+        out = real(features, boxes, strides, out_size, sampling_ratio, min_level, routing)
+        if not record:
+            record.update(features=[f.detach().clone() for f in features],
+                          boxes=boxes.detach().clone(), out=out.detach().clone(),
+                          args=(tuple(strides), out_size, sampling_ratio, min_level, routing))
+            out.register_hook(lambda g: record.__setitem__("g", g.detach().clone()))
+        return out
+    return real, spy
+
+
+def _pooler_call_vs_plain(record):
+    """The forward kernel's recorded output and the backward kernel on the
+    recorded gradient (scaled to unit size), each against its plain version
+    on the same inputs, with phase 2's and phase 4's tolerances; raises where
+    they disagree."""
+    import torch
+    from omni3d_tpu_torch.ops import roi_align_cuda as rac
+    from omni3d_tpu_torch.ops.roi_align import (multilevel_roi_align_plain,
+                                                multilevel_roi_align_plain_bwd, route_levels)
+    strides, out_size, S, min_level, routing = record["args"]
+    feats, boxes, g = record["features"], record["boxes"], record["g"]
+    # The backward is linear in g: scaled by the power of two that brings its
+    # largest element into [1, 2) (exact in bf16), it is phase 4's unit-scale
+    # case, where the tolerance's absolute floor is small against the result.
+    g_max = float(g.abs().max())
+    if not g_max > 0:
+        raise AssertionError(f"the step's first pooler call got no gradient: max |g| {g_max}")
+    g = g * 2.0 ** -math.floor(math.log2(g_max))
+    levels = route_levels(boxes, strides, min_level, routing)
+    shapes = [tuple(f.shape[1:3]) for f in feats]
+    err, tol, frac, ok = fwd_agreement(record["out"], multilevel_roi_align_plain(
+        feats, boxes, levels, strides, out_size, S))
+    if not ok:
+        raise AssertionError(f"forward kernel disagrees with plain on the step's pooler call: "
+                             f"max {err} (tol {tol}), differing {frac}")
+    bwd_err, bwd_tol = bwd_agreement(
+        rac._backward_kernel(g, boxes, levels, shapes, strides, out_size, S, feats[0].dtype),
+        multilevel_roi_align_plain_bwd(g, boxes, levels, shapes, strides, out_size, S,
+                                       feats[0].dtype), "the step's first pooler call")
+    torch.cuda.synchronize()
+    return dict(boxes=list(boxes.shape), dtype=str(g.dtype).replace("torch.", ""),
+                fwd_max_abs_err=err, fwd_tol=tol, fwd_mismatch=frac, g_max_abs=g_max,
+                bwd_max_abs_err=bwd_err, bwd_f32_tol=bwd_tol)
+
+
 def _eval_times(run):
     """Per split of one eval run: ms per image (compute, data), the compute
     ms per image of batches at an already-seen shape (the first batch at
@@ -970,11 +1077,7 @@ def _child_setup():
 
 
 def _full_cfg(*opts):
-    from omni3d_tpu_torch.config import get_default_cfg
-    cfg = get_default_cfg()
-    cfg.merge_from_file(os.path.join(ROOT, "configs", "cubercnn_DLA34_FPN.yaml"))
-    cfg.merge_from_list(list(opts))
-    return cfg
+    return _config("cubercnn_DLA34_FPN.yaml", *opts)
 
 
 def _sync(device):
@@ -983,12 +1086,12 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
-def _timed_steps(step, batch, gen, timed=TIMED_STEPS):
-    """Host ms of the last `timed` of WARMUP_STEPS + `timed` steps, each
-    ending in a synchronise."""
+def _timed_steps(step, batch, gen, timed=TIMED_STEPS, warmup=WARMUP_STEPS):
+    """Host ms of the last `timed` of `warmup` + `timed` steps, each ending
+    in a synchronise."""
     ms = []
     device = batch["images"].device
-    for _ in range(WARMUP_STEPS + timed):
+    for _ in range(warmup + timed):
         t0 = time.perf_counter()
         step(batch, gen)
         _sync(device)
@@ -1103,8 +1206,6 @@ def _two_rank_child(rank, device, store, out_dir):
     torch = _child_setup()
     from omni3d_tpu_torch.engine import train as train_mod
     from omni3d_tpu_torch.ops import roi_align_cuda as rac
-    from omni3d_tpu_torch.ops.roi_align import (multilevel_roi_align_plain,
-                                                multilevel_roi_align_plain_bwd, route_levels)
     from omni3d_tpu_torch.parallel import dist as dist_lib
     from omni3d_tpu_torch.tools.synthetic import synthetic_trainer
 
@@ -1114,47 +1215,25 @@ def _two_rank_child(rank, device, store, out_dir):
                                                   TWO_RANK_BS, device, img=IMG)
         b = TWO_RANK_BS // 2
         local = {k: v[rank * b:(rank + 1) * b] for k, v in batch.items()}
-        seen = {}
-        real = train_mod.multilevel_roi_align
-
-        def spy(features, boxes, strides, out_size, sampling_ratio=0, *a, **k):
-            out = real(features, boxes, strides, out_size, sampling_ratio, *a, **k)
-            if not seen:
-                seen.update(features=[f.detach().clone() for f in features],
-                            boxes=boxes.detach().clone(), out=out.detach().clone(),
-                            args=(tuple(strides), out_size, sampling_ratio))
-                out.register_hook(keep_grad)
-            return out
-
-        def keep_grad(g):
-            seen["g"] = g.detach().clone()
-        train_mod.multilevel_roi_align = spy
+        record = {}
+        real, train_mod.multilevel_roi_align = _first_pooler_call_checked(train_mod, record)
         rac.multilevel_roi_align.launches = 0          # counts of the main path's run only
         rac.multilevel_roi_align.bwd_launches = 0
-        t0 = time.perf_counter()
-        logs = step(local, torch.Generator().manual_seed(0))
-        _sync(device)
-        ms = (time.perf_counter() - t0) * 1e3
+        try:
+            t0 = time.perf_counter()
+            logs = step(local, torch.Generator().manual_seed(0))
+            _sync(device)
+            ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            train_mod.multilevel_roi_align = real
         launches = {"forward": rac.multilevel_roi_align.launches,
                     "backward": rac.multilevel_roi_align.bwd_launches}
-        train_mod.multilevel_roi_align = real
         # the kernels against the plain pooler on this rank's recorded inputs
-        strides, P, S = seen["args"]
-        levels = route_levels(seen["boxes"], strides, 2, "canonical")
-        shapes = [f.shape[1:3] for f in seen["features"]]
-        fwd = fwd_agreement(seen["out"], multilevel_roi_align_plain(
-            seen["features"], seen["boxes"], levels, strides, P, S))
-        if not fwd[3]:
-            raise AssertionError(f"rank {rank}: forward kernel disagrees with plain: {fwd}")
-        bwd_err, _ = bwd_agreement(
-            rac._backward_kernel(seen["g"], seen["boxes"], levels, shapes, strides, P, S,
-                                 torch.float32),
-            multilevel_roi_align_plain_bwd(seen["g"], seen["boxes"], levels, shapes, strides, P,
-                                           S, torch.float32), f"rank {rank}")
+        pooler = _pooler_call_vs_plain(record)
         torch.save({"logs": {k: float(v) for k, v in logs.items()},
                     "model": {k: v.cpu() for k, v in model.state_dict().items()},
-                    "launches": launches, "ms": ms, "fwd_max_abs_err": fwd[0],
-                    "bwd_max_abs_err": bwd_err, "rois": list(seen["boxes"].shape)},
+                    "launches": launches, "ms": ms, "fwd_max_abs_err": pooler["fwd_max_abs_err"],
+                    "bwd_max_abs_err": pooler["bwd_max_abs_err"], "rois": pooler["boxes"]},
                    os.path.join(out_dir, f"rank{rank}.pt"))
     finally:
         torch.distributed.destroy_process_group()
@@ -1389,6 +1468,254 @@ def distributed_path(device, tmp, weights):
                 for k in ("forward", "backward")}
     return summary, launches
 
+# phase 9: the other backbones at full width
+RESNET_CONFIG = "cubercnn_ResNet34_FPN.yaml"
+BACKBONE_TRAIN_BS = 32           # 9a: the synthetic bf16 training batch
+BACKBONE_ENTRY_STEPS = 8         # 9a: train_net iterations, bf16 bs 8
+BACKBONE_BS = 8                  # 9b: one inference batch and one training batch per model
+# 9b: (label, config, KEY VALUE overrides) of every other builder and variant
+OTHER_BACKBONES = (
+    [(f"ResNet-{d}", RESNET_CONFIG, ("MODEL.RESNETS.DEPTH", str(d))) for d in (18, 50, 101)]
+    + [("DenseNet-121", "cubercnn_densenet_FPN.yaml", ()),
+       ("MNASNet-1.0", "cubercnn_mnasnet_FPN.yaml", ()),
+       ("ShuffleNetV2-x1.0", "cubercnn_shufflenet_FPN.yaml", ())]
+    + [(v, "cubercnn_DLA34_FPN.yaml", ("MODEL.DLA.TYPE", v))
+       for v in ("dla46_c", "dla46x_c", "dla60x_c", "dla60", "dla60x", "dla102", "dla102x",
+                 "dla102x2", "dla169")])
+
+
+def _train_steps(cfg, device, bs, warmup, timed, check_pooler=False):
+    """bf16 steps of `tools.synthetic.synthetic_trainer(cfg, ...)` at 512
+    px: one forward and one backward launch per step, finite losses; with
+    `check_pooler` the first warm-up step's pooler call is held against the
+    plain versions right after it, and the peak memory is taken over the
+    steps after that one. Returns (row, launches)."""
+    import torch
+    from omni3d_tpu_torch.engine import train as train_mod
+    from omni3d_tpu_torch.tools.synthetic import synthetic_trainer
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    model, opt, step, batch = synthetic_trainer(cfg, torch.bfloat16, bs, device, img=IMG)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    losses = []
+
+    def checked(batch, gen):
+        before = _launch_counts()
+        logs = step(batch, gen)
+        after = _launch_counts()
+        assert (after[0] - before[0], after[1] - before[1]) == (1, 1), (before, after)
+        bad = {k: float(v) for k, v in logs.items() if not torch.isfinite(torch.as_tensor(v))}
+        assert not bad, bad
+        losses.append(float(logs["total_loss"]))
+
+    gen = torch.Generator().manual_seed(0)
+    pooler = None
+    if check_pooler:
+        record = {}
+        real, train_mod.multilevel_roi_align = _first_pooler_call_checked(train_mod, record)
+        try:
+            checked(batch, gen)
+        finally:
+            train_mod.multilevel_roi_align = real
+        pooler = _pooler_call_vs_plain(record)
+        del record
+        torch.cuda.empty_cache()
+        warmup -= 1
+    torch.cuda.reset_peak_memory_stats()
+    ms = _timed_steps(checked, batch, gen, timed, warmup)
+    peak = torch.cuda.max_memory_allocated()
+    med = statistics.median(ms)
+    row = dict(bs=bs, build_s=build_s, ms_per_step=med, ms_steps=ms, img_per_s=bs * 1e3 / med,
+               peak_mem_gib=peak / 2 ** 30, losses=losses, skipped=step.state["skipped"],
+               remat_backbone=bool(cfg.TPU.REMAT_BACKBONE))
+    if pooler is not None:
+        row["first_pooler_call_vs_plain"] = pooler
+    n = len(losses)
+    del model, opt, step, batch
+    torch.cuda.empty_cache()
+    return row, {"forward": n, "backward": n}
+
+
+def _add(total, launches):
+    for k in total:
+        total[k] += launches[k]
+
+
+def resnet_entry_and_eval(device, tmp):
+    """9a: `tools.train_net` with configs/cubercnn_ResNet34_FPN.yaml on phase
+    6's dataset (bf16, bs 8, BACKBONE_ENTRY_STEPS iterations), then
+    `--eval-only` with its model_final.ckpt on phase 7's SUNRGBD_test at
+    TPU.EVAL_BATCH_SIZE 8. Returns (summary, launches)."""
+    import numpy as np
+    import torch
+    from omni3d_tpu_torch.tools import train_net
+    from omni3d_tpu_torch.tools.profile_entry import SPLITS, iteration_times, train_argv
+
+    out_dir = os.path.join(tmp, "resnet34_output")
+    before = _launch_counts()
+    t0 = time.perf_counter()
+    run = train_net.main(train_argv(tmp, out_dir, BACKBONE_ENTRY_STEPS, config=RESNET_CONFIG))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    after = _launch_counts()
+    train_launches = {"forward": after[0] - before[0], "backward": after[1] - before[1]}
+    assert train_launches == {"forward": BACKBONE_ENTRY_STEPS,
+                              "backward": BACKBONE_ENTRY_STEPS}, train_launches
+    assert run.iterations == list(range(BACKBONE_ENTRY_STEPS))
+    assert run.model.cfg.MODEL.BACKBONE.NAME == "build_resnet_from_vision_fpn_backbone"
+    for f in ("model_final.ckpt", "metrics.json", "category_meta.json"):
+        assert os.path.exists(os.path.join(out_dir, f)), f
+    with open(os.path.join(out_dir, "metrics.json")) as f:
+        logged = [json.loads(line) for line in f]
+    bad = [(r["iteration"], k) for r in logged for k, v in r.items() if not np.isfinite(v)]
+    assert not bad, bad
+    times = iteration_times([run])
+
+    name = "SUNRGBD_test"
+    eval_dir = os.path.join(tmp, "resnet34_eval")
+    argv = ["--config-file", os.path.join(ROOT, "configs", RESNET_CONFIG),
+            "--datasets-root", os.path.join(tmp, "Omni3D"), "--device", device.type,
+            "--eval-only", "--weights", os.path.join(out_dir, "model_final.ckpt"),
+            "OUTPUT_DIR", eval_dir, "DATASETS.TRAIN", str(tuple(SPLITS)),
+            "DATASETS.TEST", str((name,)), "TPU.COMPUTE_DTYPE", "bfloat16",
+            "TPU.EVAL_BATCH_SIZE", "8", "SEED", "0"]
+    before = _launch_counts()
+    t0 = time.perf_counter()
+    results = train_net.main(argv)
+    torch.cuda.synchronize()
+    eval_wall = time.perf_counter() - t0
+    after = _launch_counts()
+    n_batches = len(results[name]["inference"]["batches"])
+    eval_launches = {"forward": after[0] - before[0], "backward": after[1] - before[1]}
+    assert eval_launches == {"forward": 2 * n_batches, "backward": 0}, eval_launches
+    files = os.path.join(eval_dir, "inference", "iter_final")
+    assert os.path.exists(os.path.join(files, "omni3d_results.json"))
+    assert os.path.exists(os.path.join(files, name, "instances_predictions.pkl"))
+    aps = {k: v for k, v in results[name].items() if k.startswith(("AP", "AR"))}
+    bad = {k: v for k, v in aps.items() if not _ap_ok(k, v)}
+    assert aps and not bad, bad
+    print(f"  train_net ResNet34-FPN: {BACKBONE_ENTRY_STEPS} iterations, "
+          f"{times['ms_per_step']:.1f} ms/step (median at seen shapes), "
+          f"{times['img_per_s']:.1f} img/s, last loss {logged[-1]['total_loss']:.4f}, "
+          f"wall {wall:.1f} s; --eval-only {name} at bs 8: {n_batches} batches, AP2D "
+          f"{results[name]['AP2D']:.3f} AP3D {results[name]['AP3D']:.3f}, wall {eval_wall:.1f} s")
+    print("  AP dict: " + json.dumps(aps))
+    launches = {k: train_launches[k] + eval_launches[k] for k in train_launches}
+    summary = dict(train=dict(steps=BACKBONE_ENTRY_STEPS, wall_s=wall,
+                              last_total_loss=logged[-1]["total_loss"], **times),
+                   eval=dict(split=name, batches=n_batches, wall_s=eval_wall, aps=aps,
+                             inference=results[name]["inference"]))
+    return summary, launches
+
+
+def other_backbone(device, label, config, opts):
+    """9b: one full-width model: one bf16 bs-8 inference at 512 px after a
+    warm-up call (two forward launches per call, `check_outputs`; the pose
+    bias at the identity as in `main_path`), then one
+    bf16 bs-8 training step after a warm-up step (one forward and one
+    backward launch per step, finite losses). Returns (row, launches)."""
+    import numpy as np
+    import torch
+    from omni3d_tpu_torch.models import rcnn3d
+    from omni3d_tpu_torch.tools.synthetic import condition_pose_bias_
+
+    cfg = _config(config, *opts)
+    kw = rcnn3d.inference_kwargs(cfg)
+    raw = np.random.default_rng(0).integers(0, 255, (BACKBONE_BS, IMG, IMG, 3), dtype=np.uint8)
+    images = rcnn3d.preprocess(torch.from_numpy(raw).to(device), cfg.MODEL.PIXEL_MEAN,
+                               cfg.MODEL.PIXEL_STD)
+    K = torch.tensor([[512.0, 0, IMG / 2], [0, 512.0, IMG / 2], [0, 0, 1]], device=device)
+    Ks, ratio = K.expand(BACKBONE_BS, 3, 3).contiguous(), torch.ones(BACKBONE_BS, device=device)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = rcnn3d.build_model(cfg, device=device, dtype=torch.bfloat16, seed=0)
+    condition_pose_bias_(model)
+    before = _launch_counts()
+    rcnn3d.inference(model, images, Ks, ratio, **kw)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out = rcnn3d.inference(model, images, Ks, ratio, **kw)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    after = _launch_counts()
+    assert (after[0] - before[0], after[1] - before[1]) == (4, 0), (before, after)
+    check_outputs(out, BACKBONE_BS, kw["topk"], cfg.MODEL.ROI_HEADS.NUM_CLASSES)
+    peak = torch.cuda.max_memory_allocated()
+    params_m = sum(p.numel() for p in model.backbone.bottom_up.parameters()) / 1e6
+    valid = int(out["valid"].sum())
+    del model, out
+    train, train_launches = _train_steps(cfg, device, BACKBONE_BS, 1, 1)
+    row = dict(model=label, config=config, opts=list(opts), trunk_params_m=params_m,
+               inference=dict(bs=BACKBONE_BS, build_and_warmup_s=build_s, ms_per_batch=ms,
+                              img_per_s=BACKBONE_BS * 1e3 / ms, peak_mem_gib=peak / 2 ** 30,
+                              detections=valid),
+               training=train)
+    print(f"  {label:18s} trunk {params_m:6.2f} M params; inference bs {BACKBONE_BS}: build + "
+          f"warm-up {build_s:.1f} s, {ms:.1f} ms, {valid} detections, peak "
+          f"{peak / 2 ** 30:.2f} GiB; training bs "
+          f"{BACKBONE_BS}: build {train['build_s']:.1f} s, steps {train['ms_steps'][0]:.1f} ms "
+          f"(after one warm-up), loss {train['losses'][-1]:.4f}, peak "
+          f"{train['peak_mem_gib']:.2f} GiB")
+    return row, {"forward": 4 + train_launches["forward"],
+                 "backward": train_launches["backward"]}
+
+
+def backbones_path(device, tmp, dla_inference, dla_training):
+    """Phase 9: ResNet34-FPN as phases 3, 5, 6 and 7 drive DLA-34 (9a), and
+    every other builder and DLA variant at full width (9b). Returns
+    (summary, launches)."""
+    launches = {"forward": 0, "backward": 0}
+    print("  9a: ResNet34-FPN (configs/cubercnn_ResNet34_FPN.yaml)")
+    timings, inf_launches, plain = main_path(device, RESNET_CONFIG)
+    _add(launches, {"forward": inf_launches, "backward": 0})
+    cfg = _config(RESNET_CONFIG)
+    train, train_launches = _train_steps(cfg, device, BACKBONE_TRAIN_BS, WARMUP_STEPS,
+                                         TIMED_STEPS, check_pooler=True)
+    _add(launches, train_launches)
+    pc = train["first_pooler_call_vs_plain"]
+    print(f"  bf16 bs={BACKBONE_TRAIN_BS} steps: {train['ms_per_step']:.1f} ms/step (median of "
+          f"{TIMED_STEPS}; {', '.join(f'{t:.1f}' for t in train['ms_steps'])}), "
+          f"{train['img_per_s']:.1f} img/s, peak {train['peak_mem_gib']:.2f} GiB, build "
+          f"{train['build_s']:.1f} s; first pooler call ({pc['boxes']} RoIs, {pc['dtype']}) vs "
+          f"plain: forward max|k-p| {pc['fwd_max_abs_err']:.3e} (tol {pc['fwd_tol']:.1e}), "
+          f"backward on g / 2^floor(log2 {pc['g_max_abs']:.3e}) {pc['bwd_max_abs_err']:.3e} "
+          f"(f32 tol {pc['bwd_f32_tol']:.3e} + 1 ULP)")
+    remat, remat_launches = _train_steps(_config(RESNET_CONFIG, "TPU.REMAT_BACKBONE", "True"),
+                                         device, BACKBONE_TRAIN_BS, WARMUP_STEPS, TIMED_STEPS)
+    _add(launches, remat_launches)
+    print(f"  bf16 bs={BACKBONE_TRAIN_BS} with TPU.REMAT_BACKBONE: {remat['ms_per_step']:.1f} "
+          f"ms/step, peak {remat['peak_mem_gib']:.2f} GiB (without: "
+          f"{train['peak_mem_gib']:.2f} GiB)")
+    entry, entry_launches = resnet_entry_and_eval(device, tmp)
+    _add(launches, entry_launches)
+    dla_bf16 = {r["bs"]: r["ms_per_batch"] for r in dla_inference if r["dtype"] == "bfloat16"}
+    res_bf16 = {r["bs"]: r["ms_per_batch"] for r in timings if r["dtype"] == "bfloat16"}
+    dla_step = next(r for r in dla_training if r["dtype"] == "bfloat16")
+    print("  on this card, bf16: inference ms/batch DLA-34 vs ResNet-34: " + ", ".join(
+        f"bs {bs} {dla_bf16[bs]:.2f} vs {res_bf16[bs]:.2f}" for bs in sorted(dla_bf16))
+          + f"; training bs {dla_step['bs']} {dla_step['ms_per_step']:.1f} vs "
+          f"{train['ms_per_step']:.1f} ms/step, peak {dla_step['peak_mem_gib']:.2f} vs "
+          f"{train['peak_mem_gib']:.2f} GiB")
+
+    print("  9b: every other builder and DLA variant, full width, bf16, bs "
+          f"{BACKBONE_BS}, 512 px")
+    rows = []
+    for label, config, opts in OTHER_BACKBONES:
+        row, row_launches = other_backbone(device, label, config, opts)
+        rows.append(row)
+        _add(launches, row_launches)
+    summary = {"resnet34": dict(inference=timings, kernel_vs_plain_pooler=plain, training=train,
+                                training_remat_backbone=remat, entry_point=entry["train"],
+                                evaluation=entry["eval"],
+                                dla34_same_card=dict(inference_bf16_ms=dla_bf16,
+                                                     training_bf16=dla_step)),
+               "others": rows, "launches": launches}
+    return summary, launches
+
 
 def main():
     import torch
@@ -1407,36 +1734,40 @@ def main():
           f"{torch.cuda.get_device_name(0)}; TF32 off (cuDNN and matmul)")
 
     from omni3d_tpu_torch.ops import roi_align_cuda
-    print("[1/8] build")
+    print("[1/9] build")
     path, secs, log = roi_align_cuda.build()
     print(f"  {os.path.relpath(path, ROOT)} built in {secs:.1f} s")
     for line in log.splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print("  ptxas:", line.strip()[:160])
 
-    print("[2/8] forward kernel vs plain PyTorch version")
+    print("[2/9] forward kernel vs plain PyTorch version")
     main_case, worst = kernel_vs_plain(device)
 
-    print("[3/8] inference main path: DLA34-FPN inference at 512 px")
-    timings, launches = main_path(device)
+    print("[3/9] inference main path: DLA34-FPN inference at 512 px")
+    timings, launches, _ = main_path(device)
 
-    print("[4/8] backward kernel vs plain PyTorch version")
+    print("[4/9] backward kernel vs plain PyTorch version")
     worst_bwd = bwd_vs_plain(device)
     at_train = time_kernels_at_train_shape(device)
 
-    print("[5/8] training main path: DLA34-FPN training steps at 512 px")
+    print("[5/9] training main path: DLA34-FPN training steps at 512 px")
     train_rows, train_launches, plain_cmp = train_path(device)
 
     with tempfile.TemporaryDirectory() as tmp:
-        print("[6/8] training entry point: tools.train_net on a synthetic Omni3D-format dataset")
+        print("[6/9] training entry point: tools.train_net on a synthetic Omni3D-format dataset")
         entry, entry_launches, weights = entry_point_path(device, tmp)
 
-        print("[7/8] evaluation: tools.train_net --eval-only on synthetic test splits")
+        print("[7/9] evaluation: tools.train_net --eval-only on synthetic test splits")
         evaluation, eval_launches = evaluation_path(device, tmp, weights)
 
-        print("[8/8] data parallelism: DDP over NCCL at world size 1, two ranks on the card "
+        print("[8/9] data parallelism: DDP over NCCL at world size 1, two ranks on the card "
               "over gloo, --eval-only at world size 2")
         distributed, ddp_launches = distributed_path(device, tmp, weights)
+
+        print("[9/9] other backbones at full width: ResNet34-FPN as phases 3 and 5-7 drive "
+              "DLA-34, then every other builder and DLA variant")
+        backbones, bb_launches = backbones_path(device, tmp, timings, train_rows)
 
     bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "omni3d_tpu")]
     assert not bad, bad
@@ -1445,6 +1776,12 @@ def main():
     print("training entry point: " + json.dumps(entry))
     print("evaluation: " + json.dumps(evaluation))
     print("distributed: " + json.dumps(distributed))
+    print("backbones: " + json.dumps(backbones))
+    # phase 9's kernel-vs-plain checks on ResNet-34's own pooler inputs (its
+    # random-weight maps are larger than DLA-34's, so are the absolute errors)
+    bb_pooler = backbones["resnet34"]["training"]["first_pooler_call_vs_plain"]
+    bb_plain = backbones["resnet34"]["kernel_vs_plain_pooler"]
+    bb_fwd_err = max(bb_pooler["fwd_max_abs_err"], bb_plain["pooled_max_abs_err"])
     print(card)
     print(json.dumps({"kernels": [{
         "name": "multilevel_roi_align_fwd", "route": "cuda",
@@ -1452,14 +1789,17 @@ def main():
         "replaces": "omni3d_tpu/ops/roi_align_pallas.py:658",
         "also_replaces": "omni3d_tpu/ops/roi_align_pallas.py:469",
         "launches": (launches + train_launches["forward"] + entry_launches["forward"]
-                     + eval_launches["forward"] + ddp_launches["forward"]),
+                     + eval_launches["forward"] + ddp_launches["forward"]
+                     + bb_launches["forward"]),
         "launches_by_path": {"inference": launches, "training": train_launches["forward"],
                              "training_entry_point": entry_launches["forward"],
                              "evaluation": eval_launches["forward"],
-                             "distributed": ddp_launches["forward"]},
+                             "distributed": ddp_launches["forward"],
+                             "backbones": bb_launches["forward"]},
         "max_abs_err": max(worst, at_train["fwd_max_abs_err"],
                            evaluation["roi_align_fwd_max_abs_err"],
-                           distributed["two_ranks_one_card_gloo"]["fwd_max_abs_err"]),
+                           distributed["two_ranks_one_card_gloo"]["fwd_max_abs_err"],
+                           bb_fwd_err),
         "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
         "bound_ms": main_case["bound_ms"], "bound_by": main_case["bound_by"],
         "library_ms": None,
@@ -1467,18 +1807,24 @@ def main():
                       "sampling_ratio 0 (whole wrapper, routing included)",
         "train_shape": {k: at_train[k] for k in ("fwd_max_abs_err", "fwd_ms", "fwd_plain_ms",
                                                  "fwd_bound_ms", "fwd_bound_by")},
+        "backbones_vs_plain": {"resnet34_f32_inference": bb_plain,
+                               "resnet34_bf16_train_step": {
+                                   k: bb_pooler[k] for k in ("fwd_max_abs_err", "fwd_tol",
+                                                             "fwd_mismatch")}},
     }, {
         "name": "multilevel_roi_align_bwd", "route": "cuda",
         "source": "omni3d_tpu_torch/csrc/roi_align_bwd.cu",
         "replaces": "omni3d_tpu/ops/roi_align_bwd_pallas.py:61",
         "launches": (train_launches["backward"] + entry_launches["backward"]
-                     + ddp_launches["backward"]),
+                     + ddp_launches["backward"] + bb_launches["backward"]),
         "launches_by_path": {"training": train_launches["backward"],
                              "training_entry_point": entry_launches["backward"],
                              "evaluation": eval_launches["backward"],
-                             "distributed": ddp_launches["backward"]},
+                             "distributed": ddp_launches["backward"],
+                             "backbones": bb_launches["backward"]},
         "max_abs_err": max(worst_bwd, at_train["bwd_max_abs_err"],
-                           distributed["two_ranks_one_card_gloo"]["bwd_max_abs_err"]),
+                           distributed["two_ranks_one_card_gloo"]["bwd_max_abs_err"],
+                           bb_pooler["bwd_max_abs_err"]),
         "max_abs_err_train_shape": at_train["bwd_max_abs_err"],
         "ms": at_train["bwd_ms"], "plain_ms": at_train["bwd_plain_ms"],
         "bound_ms": at_train["bwd_bound_ms"], "bound_by": at_train["bwd_bound_by"],
@@ -1486,6 +1832,8 @@ def main():
         "timed_case": f"N={TRAIN_ROIS} per image x B=32, canonical, bfloat16, "
                       "sampling_ratio 0 (wrapper: torch.empty outputs, launch)",
         "bit_reproducible": True,
+        "backbones_vs_plain": {"resnet34_bf16_train_step": {
+            k: bb_pooler[k] for k in ("bwd_max_abs_err", "bwd_f32_tol")}},
     }]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

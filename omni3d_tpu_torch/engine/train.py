@@ -13,13 +13,12 @@ through `DistributedDataParallel`.
 """
 from __future__ import annotations
 
-import functools
-
 import torch
+import torch.utils.checkpoint
 from torch.nn.parallel import DistributedDataParallel
 
 from ..models.heads import decode_cube, scale_proposals
-from ..models.layers import BatchNorm2d
+from ..models.layers import BatchNorm2d, running_stats_frozen
 from ..models.rcnn3d import FEATURE_NAMES, FEATURE_STRIDES, CubeRCNN
 from ..models.roi_training import cube_losses, fast_rcnn_losses, label_and_sample_proposals
 from ..models.rpn import label_and_sample_anchors, rpn_losses, select_proposals
@@ -54,6 +53,24 @@ def sampling_noise(generator: torch.Generator | None, B: int, num_anchors: int,
     return {k: torch.stack(v) for k, v in draws.items()}
 
 
+def _remat_features(model: CubeRCNN, images):
+    """`model.features` under `torch.utils.checkpoint` (TPU.REMAT_BACKBONE,
+    the JAX package's jax.checkpoint of the features, train.py:101-104):
+    the backbone's activations are recomputed in the backward instead of
+    kept. The recomputing forward leaves the BN running statistics where
+    the first one put them, so they move once per step, as under
+    jax.checkpoint."""
+    ran = []
+
+    def features(im):
+        if ran:
+            with running_stats_frozen(model):
+                return model.features(im)
+        ran.append(True)
+        return model.features(im)
+    return torch.utils.checkpoint.checkpoint(features, images, use_reentrant=False)
+
+
 def compute_losses(model: CubeRCNN, batch: dict, generator: torch.Generator | None = None,
                    noise: dict | None = None, img_offset: int = 0):
     """All Cube R-CNN losses of one batch.
@@ -66,7 +83,8 @@ def compute_losses(model: CubeRCNN, batch: dict, generator: torch.Generator | No
       `generator` when None. Tests inject the JAX package's draws here.
     img_offset: global index of batch image 0 (see `sampling_noise`).
 
-    In train mode the BN layers update their running statistics. Returns
+    In train mode the BN layers update their running statistics, once also
+    under TPU.REMAT_BACKBONE. Returns
     (total, losses, metrics) with the JAX package's key names.
     """
     cfg = model.cfg
@@ -77,7 +95,8 @@ def compute_losses(model: CubeRCNN, batch: dict, generator: torch.Generator | No
     C = rh.NUM_CLASSES
     gt_boxes, gt_classes, gt_valid = batch["gt_boxes"], batch["gt_classes"], batch["gt_valid"]
 
-    feats, flist = model.features(images)
+    feats, flist = (_remat_features(model, images) if cfg.TPU.REMAT_BACKBONE
+                    else model.features(images))
     logits, deltas = model.proposal_generator["rpn_head"]([feats[f] for f in FEATURE_NAMES])
     logits = [l.float() for l in logits]
     deltas = [d.float() for d in deltas]
@@ -244,7 +263,8 @@ def make_train_step(cfg, model: CubeRCNN, optimizer: torch.optim.Optimizer,
             LossModule(model), device_ids=[device] if device.type == "cuda" else None,
             broadcast_buffers=False, static_graph=True)
     else:
-        losses_fn = functools.partial(compute_losses, model)
+        def losses_fn(*args):   # looked up per call: tools/profile_train.py wraps it
+            return compute_losses(model, *args)
 
     def step(batch, generator=None, noise=None):
         saved = [b.clone() for b in bn_stats] if stabilize_on else []

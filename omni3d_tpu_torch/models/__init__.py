@@ -1,1 +1,2 @@
-"""Modeling: DLA-34 + FPN backbone, RPN, box and cube heads, CubeRCNN."""
+"""Modeling: the backbones (DLA, ResNet, DenseNet, MNASNet, ShuffleNet) + FPN,
+RPN, box and cube heads, CubeRCNN."""

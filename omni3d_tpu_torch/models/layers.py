@@ -12,6 +12,8 @@ at its entry; everything downstream follows the activations.
 """
 from __future__ import annotations
 
+import contextlib
+
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
@@ -37,10 +39,14 @@ class Linear(nn.Linear):
 
 
 def conv2d(cin: int, cout: int, kernel: int, stride: int = 1,
-           padding: int | None = None, bias: bool = False, dtype=None) -> Conv2d:
-    """Conv with torch-style (kernel - 1) // 2 padding by default."""
+           padding: int | None = None, bias: bool = False, groups: int = 1,
+           dtype=None) -> Conv2d:
+    """Conv with torch-style (kernel - 1) // 2 padding by default; `groups`
+    splits the channels as flax's `feature_group_count` does (the weight is
+    (cout, cin / groups, k, k))."""
     pad = (kernel - 1) // 2 if padding is None else padding
-    return Conv2d(cin, cout, kernel, stride=stride, padding=pad, bias=bias, dtype=dtype)
+    return Conv2d(cin, cout, kernel, stride=stride, padding=pad, bias=bias, groups=groups,
+                  dtype=dtype)
 
 
 def _bn_affine(x, weight, bias, mean, var):
@@ -51,25 +57,6 @@ def _bn_affine(x, weight, bias, mean, var):
     return x * a.to(x.dtype)[:, None, None] + b.to(x.dtype)[:, None, None]
 
 
-class FrozenBatchNorm2d(nn.Module):
-    """Inference BatchNorm as a per-channel affine x * a + b.
-
-    a = weight * rsqrt(running_var + eps) and b = bias - running_mean * a are
-    formed in float32 from float32 buffers and applied in the activation's
-    dtype, as the JAX package's `_EvalBN` does. Buffer names follow
-    `nn.BatchNorm2d`, so detectron2 state dicts load into it.
-    """
-
-    def __init__(self, num_features: int):
-        super().__init__()
-        for name, fill in (("weight", 1.0), ("bias", 0.0),
-                           ("running_mean", 0.0), ("running_var", 1.0)):
-            self.register_buffer(name, torch.full((num_features,), fill))
-
-    def forward(self, x):
-        return _bn_affine(x, self.weight, self.bias, self.running_mean, self.running_var)
-
-
 class BatchNorm2d(nn.Module):
     """Trainable BatchNorm with the JAX package's semantics (flax
     nn.BatchNorm / `_TrainPackedBN`, layers.py:195-239): eps 1e-5, running
@@ -77,9 +64,15 @@ class BatchNorm2d(nn.Module):
     BIASED variance (mean(x^2) - mean(x)^2) both for normalising and for the
     running update, normalisation applied as the affine x * a + b in the
     compute dtype. `torch.nn.BatchNorm2d` would update the running variance
-    with the unbiased one. `weight` and `bias` are float32 parameters; the
-    state-dict keys are `FrozenBatchNorm2d`'s. In eval mode it is
-    `FrozenBatchNorm2d` (bit for bit)."""
+    with the unbiased one. `weight` and `bias` are float32 parameters and the
+    statistics float32 buffers, under `nn.BatchNorm2d`'s state-dict keys, so
+    detectron2 state dicts load into it. In eval mode it is the inference
+    affine of the JAX package's `_EvalBN`: x * a + b, a and b formed in
+    float32 from the running statistics and applied in x's dtype.
+
+    `update_stats` False (see `running_stats_frozen`) keeps the running
+    statistics where they are in train mode, for a forward that recomputes
+    one already counted."""
 
     def __init__(self, num_features: int):
         super().__init__()
@@ -87,6 +80,7 @@ class BatchNorm2d(nn.Module):
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
         self.register_buffer("running_var", torch.ones(num_features))
+        self.update_stats = True
 
     def forward(self, x):
         if not self.training:
@@ -94,17 +88,34 @@ class BatchNorm2d(nn.Module):
         xf = x.float()
         mean = xf.mean(dim=(0, 2, 3))
         var = ((xf * xf).mean(dim=(0, 2, 3)) - mean * mean).clamp(min=0.0)
-        with torch.no_grad():
-            self.running_mean.copy_((1 - BN_MOMENTUM) * self.running_mean + BN_MOMENTUM * mean)
-            self.running_var.copy_((1 - BN_MOMENTUM) * self.running_var + BN_MOMENTUM * var)
+        if self.update_stats:
+            with torch.no_grad():
+                self.running_mean.copy_((1 - BN_MOMENTUM) * self.running_mean + BN_MOMENTUM * mean)
+                self.running_var.copy_((1 - BN_MOMENTUM) * self.running_var
+                                       + BN_MOMENTUM * var)
         return _bn_affine(x, self.weight, self.bias, mean, var)
 
 
+@contextlib.contextmanager
+def running_stats_frozen(module: nn.Module):
+    """Within the block, no `BatchNorm2d` under `module` updates its running
+    statistics (the recomputing forward of `torch.utils.checkpoint`)."""
+    bns = [m for m in module.modules() if isinstance(m, BatchNorm2d)]
+    for m in bns:
+        m.update_stats = False
+    try:
+        yield
+    finally:
+        for m in bns:
+            m.update_stats = True
+
+
 def conv_bn(cin: int, cout: int, kernel: int, stride: int = 1, relu: bool = True,
-            padding: int | None = None, dtype=None, norm=FrozenBatchNorm2d) -> nn.Sequential:
+            padding: int | None = None, groups: int = 1, dtype=None) -> nn.Sequential:
     """conv -> BN (-> relu), keyed `.0` / `.1` like the reference's
-    Sequential blocks; `norm` is FrozenBatchNorm2d or BatchNorm2d."""
-    mods = [conv2d(cin, cout, kernel, stride, padding, dtype=dtype), norm(cout)]
+    Sequential blocks."""
+    mods = [conv2d(cin, cout, kernel, stride, padding, groups=groups, dtype=dtype),
+            BatchNorm2d(cout)]
     if relu:
         mods.append(nn.ReLU())
     return nn.Sequential(*mods)
@@ -113,6 +124,12 @@ def conv_bn(cin: int, cout: int, kernel: int, stride: int = 1, relu: bool = True
 def max_pool(x, window: int, stride: int, padding: int = 0):
     """torch MaxPool2d on NCHW."""
     return F.max_pool2d(x, window, stride, padding)
+
+
+def avg_pool(x, window: int, stride: int):
+    """Unpadded average pool on NCHW (flax `nn.avg_pool` with VALID
+    padding: DenseNet's transitions, 2 x 2 / 2)."""
+    return F.avg_pool2d(x, window, stride)
 
 
 def upsample_nearest_2x(x):

@@ -18,15 +18,37 @@ from ..config.cfg import StaticCfg
 from ..ops.roi_align_cuda import multilevel_roi_align
 from . import anchors as anchor_lib
 from .dla import DLA
-from .layers import BatchNorm2d, FrozenBatchNorm2d
+from .extra_backbones import DenseNet121, MNASNet10, ShuffleNetV2
 from .fpn import FPN
 from .heads import (BoxHead, CubeHead, FastRCNNPredictor, decode_cube,
                     fast_rcnn_inference, scale_proposals)
+from .layers import BatchNorm2d
+from .resnet import ResNet
 from .rpn import RPNHead, select_proposals
 
 FEATURE_NAMES = ("p2", "p3", "p4", "p5", "p6")
 FEATURE_STRIDES = (4, 8, 16, 32, 64)
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+def build_bottom_up(cfg, dtype=None) -> nn.Module:
+    """The FPN's bottom-up network, keyed by the reference builder names
+    (omni3d_tpu/models/rcnn3d.py:40-62; reference rcnn3d.py:259-272
+    BACKBONE_REGISTRY); MODEL.DLA.TYPE and MODEL.RESNETS.DEPTH pick the
+    variant. Its `out_channels` maps p2..p6 to their widths; `dtype` is the
+    parameters' dtype."""
+    name = cfg.MODEL.BACKBONE.NAME
+    if name == "build_dla_from_vision_fpn_backbone":
+        return DLA(cfg.MODEL.DLA.TYPE, dtype=dtype)
+    if name == "build_resnet_from_vision_fpn_backbone":
+        return ResNet(cfg.MODEL.RESNETS.DEPTH, dtype=dtype)
+    if name == "build_densenet_fpn_backbone":
+        return DenseNet121(dtype=dtype)
+    if name == "build_mnasnet_fpn_backbone":
+        return MNASNet10(dtype=dtype)
+    if name == "build_shufflenet_fpn_backbone":
+        return ShuffleNetV2(dtype=dtype)
+    raise ValueError(f"Unknown backbone builder {name}")
 
 
 class ROIHeads(nn.Module):
@@ -52,30 +74,27 @@ class ROIHeads(nn.Module):
 
 
 class CubeRCNN(nn.Module):
-    """All Cube R-CNN parameters, DLA backbone only; `dtype` is the compute
-    dtype, which the images are cast to at the entry.
+    """All Cube R-CNN parameters over any `build_bottom_up` backbone;
+    `dtype` is the compute dtype, which the images are cast to at the entry.
 
     Inference (`train=False`): convolutions and linear layers hold their
-    weights in `dtype`; BN is `FrozenBatchNorm2d` (buffers). Training
-    (`train=True`): every parameter is float32 (the master weights) and the
-    layers cast them to `dtype` per call, as flax's `dtype=` with float32
-    `param_dtype` does; BN is the trainable `BatchNorm2d`, whose batch
-    statistics are used and tracked in train mode unless MODEL.USE_BN is
-    False (then BN keeps its running statistics and only its affine trains,
-    as the JAX package's `_EvalBN` parameters do). Priors are float32
-    buffers in both: they get no gradient and no weight decay.
+    weights in `dtype`. Training (`train=True`): every parameter is float32
+    (the master weights) and the layers cast them to `dtype` per call, as
+    flax's `dtype=` with float32 `param_dtype` does. BN is `BatchNorm2d`
+    with float32 affine and statistics in both: in eval mode it applies its
+    running statistics; in train mode it uses and tracks batch statistics
+    unless MODEL.USE_BN is False (then BN keeps its running statistics and
+    only its affine trains, as the JAX package's `_EvalBN` parameters do).
+    Priors are float32 buffers in both: they get no gradient and no weight
+    decay.
     """
 
     def __init__(self, cfg, dtype=torch.float32, train: bool = False):
         super().__init__()
-        if cfg.MODEL.BACKBONE.NAME != "build_dla_from_vision_fpn_backbone":
-            raise NotImplementedError(
-                f"backbone {cfg.MODEL.BACKBONE.NAME} is not ported; DLA only")
         self.cfg = cfg
         self.dtype = dtype
         pdtype = torch.float32 if train else dtype
-        bottom_up = DLA(cfg.MODEL.DLA.TYPE, dtype=pdtype,
-                        norm=BatchNorm2d if train else FrozenBatchNorm2d)
+        bottom_up = build_bottom_up(cfg, pdtype)
         out_ch = cfg.MODEL.FPN.OUT_CHANNELS
         self.backbone = FPN(bottom_up, bottom_up.out_channels,
                             tuple(cfg.MODEL.FPN.IN_FEATURES), out_ch,

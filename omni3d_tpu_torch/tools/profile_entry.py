@@ -46,10 +46,12 @@ def write_dataset(root: str) -> None:
           + ", ".join(f"{k} {n} x {h}x{w} {fmt}" for k, (n, h, w, fmt, _) in SPLITS.items()))
 
 
-def train_argv(root: str, out_dir: str, steps: int, *flags: str, workers: int = 4) -> list:
-    """train_net's arguments: bfloat16, batch BS, the config's 25 scales, 8
-    shape buckets, a checkpoint every 8 iterations."""
-    return (["--config-file", os.path.join(ROOT, "configs", "cubercnn_DLA34_FPN.yaml"),
+def train_argv(root: str, out_dir: str, steps: int, *flags: str, workers: int = 4,
+               config: str = "cubercnn_DLA34_FPN.yaml") -> list:
+    """train_net's arguments for `config` (a file of configs/): bfloat16,
+    batch BS, the config's 25 scales, 8 shape buckets, a checkpoint every 8
+    iterations."""
+    return (["--config-file", os.path.join(ROOT, "configs", config),
              "--datasets-root", os.path.join(root, "Omni3D"), "--device", "cuda",
              "--max-steps", str(steps), *flags]
             + ["OUTPUT_DIR", out_dir, "DATASETS.TRAIN", str(tuple(SPLITS)),

@@ -2,9 +2,10 @@
 
     python -m omni3d_tpu_torch.tools.profile_train --dtype bfloat16 --bs 32
     python -m omni3d_tpu_torch.tools.profile_train --dtype float32 --bs 8
+    python -m omni3d_tpu_torch.tools.profile_train --config-file configs/cubercnn_ResNet34_FPN.yaml
 
-Full-width DLA34-FPN (configs/cubercnn_DLA34_FPN.yaml) at 512 px on
-synthetic batches, seeded random weights, float32 runs with TF32 off. After
+The full-width model of --config-file (configs/cubercnn_DLA34_FPN.yaml by
+default) at 512 px on synthetic batches, seeded random weights, float32 runs with TF32 off. After
 two warm-up steps it reports:
   * wall ms per step (host clock ending in a synchronise), median of --steps;
   * stages: each stage of `compute_losses` (the engine's functions and the
@@ -43,6 +44,8 @@ def main(argv=None):
     ap.add_argument("--dtype", default="bfloat16", choices=("bfloat16", "float32"))
     ap.add_argument("--bs", type=int, default=32)
     ap.add_argument("--steps", type=int, default=5)
+    ap.add_argument("--config-file", default=os.path.join(ROOT, "configs",
+                                                           "cubercnn_DLA34_FPN.yaml"))
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -52,7 +55,7 @@ def main(argv=None):
     device = torch.device("cuda", 0)
 
     cfg = get_default_cfg()
-    cfg.merge_from_file(os.path.join(ROOT, "configs", "cubercnn_DLA34_FPN.yaml"))
+    cfg.merge_from_file(args.config_file)
     model, opt, step, batch = synthetic_trainer(cfg, getattr(torch, args.dtype), args.bs,
                                                 device)
     gen = torch.Generator().manual_seed(0)
@@ -94,7 +97,7 @@ def main(argv=None):
         "decode_cube", "cube_losses")}
     names = {"compute_losses": "forward, all losses"}
     hooks = []
-    for name, mod in {"features (DLA-34 + FPN)": model.backbone,
+    for name, mod in {"features (trunk + FPN)": model.backbone,
                       "RPN head": model.proposal_generator["rpn_head"],
                       "box head": model.roi_heads.box_head,
                       "cube head": model.roi_heads.cube_head}.items():
@@ -137,7 +140,7 @@ def main(argv=None):
 
     card = torch.cuda.get_device_name(0)
     res = {
-        "card": card, "dtype": args.dtype, "bs": args.bs, "steps": args.steps,
+        "card": card, "config": os.path.basename(args.config_file), "dtype": args.dtype, "bs": args.bs, "steps": args.steps,
         "wall_ms_per_step": statistics.median(wall), "wall_ms": wall,
         "img_per_s": args.bs * 1e3 / statistics.median(wall),
         "stages_ms": {k: statistics.median(v) for k, v in stages.items()},

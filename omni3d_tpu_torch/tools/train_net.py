@@ -16,8 +16,8 @@ metrics.json lines and the retry protocol; every TEST.EVAL_PERIOD
 iterations it evaluates the model on DATASETS.TEST. Initial weights, in the
 reference's precedence (tools/train_net.py:107-170 of the JAX package):
 MODEL.WEIGHTS_PRETRAIN, then --weights / MODEL.WEIGHTS (a reference
-.pth/.pkl, a `cubercnn://` path or a checkpoint of the port), then ImageNet
-DLA weights found by `utils.model_zoo.find_imagenet_weights`.
+.pth/.pkl, a `cubercnn://` path or a checkpoint of the port), then the
+backbone's ImageNet weights found by `utils.model_zoo.find_imagenet_weights`.
 
 `--eval-only` builds the inference model, loads --weights / MODEL.WEIGHTS
 (the same three kinds of file) and evaluates it on DATASETS.TEST: AP2D /

@@ -30,12 +30,21 @@ _LEAVES = ("kernel", "bias", "scale", "mean", "var")
 
 def flax_path_to_torch(path: tuple[str, ...]) -> str | None:
     """detectron2 key prefix of a flax module path (port of
-    `omni3d_tpu.utils.checkpoint.flax_path_to_torch` for the DLA, FPN, RPN,
-    head and prior branches). Returns None for paths with no counterpart."""
+    `omni3d_tpu.utils.checkpoint.flax_path_to_torch`: the DLA, ResNet,
+    DenseNet, MNASNet, ShuffleNet, FPN, RPN, head and prior branches).
+    Returns None for paths with no counterpart."""
     p = list(path)
     top = p[0]
     if top == "backbone":
         rest = p[1:]
+        if any(n.startswith(("denseblock", "transition")) or n in ("conv0", "norm0", "norm5")
+               for n in rest):
+            return _densenet_torch_key(rest)
+        if any(n.startswith(("stack", "stem0", "stem_dw", "stem_pw")) for n in rest):
+            return _mnasnet_torch_key(rest)
+        if any(re.fullmatch(r"stage\d+_\d+", n) or n.startswith(("b1_", "b2_"))
+               for n in rest) or (len(rest) >= 2 and rest[0] == "conv1" and rest[1] in ("c", "n")):
+            return _shufflenet_torch_key(rest)
         out = ["backbone", "bottom_up"]
         i = 0
         while i < len(rest):
@@ -44,11 +53,18 @@ def flax_path_to_torch(path: tuple[str, ...]) -> str | None:
                 # Sequential [conv, bn, relu]
                 out.append(f"{name}.0" if rest[i + 1] == "c" else f"{name}.1")
                 i += 3
+            elif name == "stem":  # ResNet stem: conv1 + bn1
+                out.append("conv1" if rest[i + 1] == "c" else "bn1")
+                i += 3
+            elif re.fullmatch(r"layer\d+_\d+", name):  # ResNet blocks
+                stage, blk = name[5:].split("_")
+                out.append(f"layer{stage}.{blk}")
+                i += 1
             elif re.fullmatch(r"conv\d", name):
                 out.append(name if rest[i + 1] == "c" else "bn" + name[-1])
                 i += 3
-            elif name == "project":  # DLA tree projection Sequential
-                out.append("project.0" if rest[i + 1] == "c" else "project.1")
+            elif name in ("downsample", "project"):  # ResNet / DLA Sequential [conv, bn]
+                out.append(f"{name}.0" if rest[i + 1] == "c" else f"{name}.1")
                 i += 3
             elif name == "root":  # flax Root nests conv/conv and bn/bn
                 out.append("root." + rest[i + 1])
@@ -73,6 +89,62 @@ def flax_path_to_torch(path: tuple[str, ...]) -> str | None:
     if top.startswith("priors"):
         return "roi_heads." + top
     return None
+
+
+def _densenet_torch_key(rest):
+    """DenseNet-121: the reference wraps torchvision `features` as `base`
+    (reference densenet.py:16-19), so keys look like
+    backbone.bottom_up.base.denseblock1.denselayer1.conv1.weight."""
+    out = ["backbone", "bottom_up", "base"]
+    for i, n in enumerate(rest):
+        if n in ("conv", "bn") and i == len(rest) - 1:
+            continue  # flax leaf-module wrapper (layers.Conv 'conv' / BN 'bn')
+        out.append(n)
+    return ".".join(out)
+
+
+# MNASNet-1.0: flax module -> (conv index, BN index) in torchvision's flat
+# `layers` Sequential (stems) or in an inverted residual's `layers`
+_MNASNET_STEM = {"stem0": ("0", "1"), "stem_dw": ("3", "4"), "stem_pw": ("6", "7")}
+_MNASNET_SUB = {"expand": ("0", "1"), "dw": ("3", "4"), "project": ("6", "7")}
+
+
+def _mnasnet_torch_key(rest):
+    """MNASNet-1.0: the reference keeps torchvision `model.layers` as `base`
+    (reference mnasnet.py:16-19); stems are flat Sequential indices and each
+    inverted residual is `<stack>.<block>.layers.<idx>`."""
+    pick = 0 if ("c" in rest or rest[-1] == "conv") else 1
+    if rest[0] in _MNASNET_STEM:
+        return f"backbone.bottom_up.base.{_MNASNET_STEM[rest[0]][pick]}"
+    m = re.fullmatch(r"stack(\d)_(\d+)", rest[0])
+    if m:
+        return (f"backbone.bottom_up.base.{7 + int(m.group(1))}.{m.group(2)}.layers."
+                f"{_MNASNET_SUB[rest[1]][pick]}")
+    return None
+
+
+# ShuffleNetV2 unit: flax module -> (conv key, BN key) in torchvision's
+# branch Sequentials
+_SHUFFLENET_SUB = {
+    "b1_dw": ("branch1.0", "branch1.1"),
+    "b1_pw": ("branch1.2", "branch1.3"),
+    "b2_pw1": ("branch2.0", "branch2.1"),
+    "b2_dw": ("branch2.3", "branch2.4"),
+    "b2_pw2": ("branch2.5", "branch2.6"),
+}
+
+
+def _shufflenet_torch_key(rest):
+    """ShuffleNetV2-x1.0: torchvision attribute names (reference
+    shufflenet.py:16-22): the conv1 Sequential and stage{2,3,4} of units
+    with branch1 / branch2 Sequentials."""
+    pick = 0 if "c" in rest else 1
+    if rest[0] == "conv1":
+        return f"backbone.bottom_up.conv1.{pick}"
+    m = re.fullmatch(r"(stage\d+)_(\d+)", rest[0])
+    if not m:
+        return None
+    return f"backbone.bottom_up.{m.group(1)}.{m.group(2)}.{_SHUFFLENET_SUB[rest[1]][pick]}"
 
 
 def _walk(tree, path=()):
@@ -180,10 +252,24 @@ def resume_or_load(output_dir: str, map_location="cpu"):
 # keys of a reference state dict that name no weight of the model
 _NOT_WEIGHTS = ("num_batches_tracked", "pixel_mean", "pixel_std", "anchor_generator")
 
-# The published ImageNet DLA weights use the bottom-up network's flat names
-# (reference dla.py:300-309); the detector drops their classifier, fc.*
-# (dla.py:306-308).
-_DLA = "build_dla_from_vision_fpn_backbone"
+# ImageNet (backbone-only) namespaces: the model's prefix of each family's
+# trunk and the prefix the published ImageNet weights use for it (reference
+# dla.py:300-309 flat DLA names; torchvision `models.*(pretrained=True)`
+# namespaces for the others: resnet.py:66-96, densenet.py, mnasnet.py,
+# shufflenet.py).
+IMAGENET_PREFIXES = {
+    "build_dla_from_vision_fpn_backbone": ("backbone.bottom_up.", ""),
+    "build_resnet_from_vision_fpn_backbone": ("backbone.bottom_up.", ""),
+    "build_densenet_fpn_backbone": ("backbone.bottom_up.base.", "features."),
+    "build_mnasnet_fpn_backbone": ("backbone.bottom_up.base.", "layers."),
+    "build_shufflenet_fpn_backbone": ("backbone.bottom_up.", ""),
+}
+
+# ImageNet classifier heads the detector drops (reference dla.py:306-308
+# deletes fc.*; the torchvision families never run theirs: ShuffleNet's
+# conv5 / fc and MNASNet's 1280-wide top convs layers.14 / 15, reference
+# mnasnet.py:24-38 stopping at layers[0:14]).
+_IMAGENET_HEAD_PREFIXES = ("fc.", "classifier.", "conv5.", "layers.14.", "layers.15.")
 _BOTTOM_UP = "backbone.bottom_up."
 
 
@@ -232,11 +318,15 @@ def convert_reference_checkpoint(state_dict: dict, model: torch.nn.Module,
 
 def convert_imagenet_backbone(state_dict: dict, model: torch.nn.Module, backbone_name: str,
                               strict: bool = False) -> dict:
-    """Load flat ImageNet backbone weights into the backbone's bottom-up
-    network only (reference dla.py:494 `imagenet_pretrain` ->
-    load_pretrained_model :300-309); the FPN and heads keep their weights.
-    DLA only: the other backbones are not ported."""
-    if backbone_name != _DLA:
-        raise NotImplementedError(f"backbone {backbone_name} is not ported; DLA only")
-    sd = {_BOTTOM_UP + k: v for k, v in _unwrap(state_dict).items() if not k.startswith("fc.")}
+    """Load ImageNet backbone weights of any `IMAGENET_PREFIXES` family into
+    the backbone's bottom-up network only, with the JAX package's prefix
+    mapping and dropped classifier heads (reference dla.py:494
+    `imagenet_pretrain` -> load_pretrained_model :300-309, torchvision
+    `pretrained=True` in resnet.py:66-96 and the densenet / mnasnet /
+    shufflenet builders); the FPN and heads keep their weights. Keys of the
+    family's namespace that name no weight of the trunk are reported as
+    unused."""
+    model_prefix, imagenet_prefix = IMAGENET_PREFIXES[backbone_name]
+    sd = {model_prefix + k[len(imagenet_prefix):]: v for k, v in _unwrap(state_dict).items()
+          if not k.startswith(_IMAGENET_HEAD_PREFIXES) and k.startswith(imagenet_prefix)}
     return _load_matching(sd, model, prefix=_BOTTOM_UP, strict=strict)

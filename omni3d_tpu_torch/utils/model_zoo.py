@@ -26,13 +26,18 @@ def resolve(path: str) -> str:
     return local
 
 
-# file stems of the ImageNet weights each ported backbone initializes from
-# (reference dla.py:30-31 URL scheme `{name}-{hash}.pth`)
+# file stems of the ImageNet weights each backbone family initializes from
+# (reference dla.py:30-31 URL scheme `{name}-{hash}.pth`; torchvision's
+# download names for the others)
 _IMAGENET_STEMS = {
     "build_dla_from_vision_fpn_backbone": lambda cfg: [
         cfg.MODEL.DLA.TYPE + ("+tricks" if cfg.MODEL.DLA.TRICKS else ""),
         cfg.MODEL.DLA.TYPE,
     ],
+    "build_resnet_from_vision_fpn_backbone": lambda cfg: [f"resnet{cfg.MODEL.RESNETS.DEPTH}"],
+    "build_densenet_fpn_backbone": lambda cfg: ["densenet121"],
+    "build_mnasnet_fpn_backbone": lambda cfg: ["mnasnet1.0", "mnasnet1_0"],
+    "build_shufflenet_fpn_backbone": lambda cfg: ["shufflenetv2_x1.0", "shufflenetv2_x1"],
 }
 
 

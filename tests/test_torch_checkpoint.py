@@ -81,9 +81,64 @@ def test_first_fc_chw_permutation(setup):
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize("name", ["cubercnn_ResNet34_FPN", "cubercnn_densenet_FPN"])
-def test_unported_backbones_raise(name):
+CONFIGS = sorted(p.stem for p in (pathlib.Path(__file__).resolve().parents[1] / "configs")
+                 .glob("cubercnn_*.yaml"))
+
+
+@pytest.mark.parametrize("name", CONFIGS)
+def test_every_config_builds_and_loads_the_jax_models_weights(name):
+    """Every model configuration builds on the CPU at full width, and the
+    JAX model of the same config (at the narrow test widths) carries its
+    variables into the port through `state_dict_from_flax`, every key
+    matched (a strict load)."""
     cfg = get_default_cfg()
-    cfg.merge_from_file(str(pathlib.Path(__file__).resolve().parents[1] / "configs" / f"{name}.yaml"))
-    with pytest.raises(NotImplementedError):
+    cfg.merge_from_file(str(pathlib.Path(__file__).resolve().parents[1] / "configs"
+                            / f"{name}.yaml"))
+    model = build_model(cfg, device="cpu")
+    assert not model.training and model.cfg.MODEL.FPN.OUT_CHANNELS == 256
+    jcfg, tcfg = small_cfgs(**{"MODEL.BACKBONE.NAME": cfg.MODEL.BACKBONE.NAME,
+                               "MODEL.RESNETS.DEPTH": cfg.MODEL.RESNETS.DEPTH})
+    variables = random_variables(jax_model(jcfg))
+    sd = port_ckpt.state_dict_from_flax(variables["params"], variables["batch_stats"],
+                                        pooled_shape(tcfg))
+    build_model(tcfg, device="cpu").load_state_dict(sd, strict=True)
+
+
+@pytest.mark.parametrize("backbone", [
+    ("build_resnet_from_vision_fpn_backbone", 18), ("build_resnet_from_vision_fpn_backbone", 50),
+    ("build_densenet_fpn_backbone", 0), ("build_mnasnet_fpn_backbone", 0),
+    ("build_shufflenet_fpn_backbone", 0), ("build_dla_from_vision_fpn_backbone", "dla102x")],
+    ids=["resnet18", "resnet50", "densenet", "mnasnet", "shufflenet", "dla102x"])
+def test_key_mapping_and_round_trip_match_jax_in_every_family(backbone):
+    """The port's `flax_path_to_torch` gives the JAX package's key for every
+    variable of each family's model, and the JAX package's converter takes
+    `state_dict_from_flax`'s output back to the same variables bit for bit."""
+    name, variant = backbone
+    opts = {"MODEL.BACKBONE.NAME": name}
+    if isinstance(variant, str):
+        opts["MODEL.DLA.TYPE"] = variant
+    elif variant:
+        opts["MODEL.RESNETS.DEPTH"] = variant
+    jcfg, tcfg = small_cfgs(**opts)
+    variables = random_variables(jax_model(jcfg))
+    paths = _paths(variables["params"]) + _paths(variables["batch_stats"])
+    for path in paths:
+        mod = path[:-1] if path[-1] in port_ckpt._LEAVES else path
+        assert port_ckpt.flax_path_to_torch(mod) == jax_ckpt.flax_path_to_torch(mod), path
+    sd = port_ckpt.state_dict_from_flax(variables["params"], variables["batch_stats"],
+                                        pooled_shape(tcfg))
+    new_p, new_s, report = jax_ckpt.convert_reference_checkpoint(
+        {k: v.numpy() for k, v in sd.items()}, variables["params"],
+        variables["batch_stats"], pooled_shape=pooled_shape(tcfg), strict=True)
+    assert report["missing"] == [] and report["unused"] == []
+    for tree, new in ((variables["params"], new_p), (variables["batch_stats"], new_s)):
+        for x, y in zip(jax.tree_util.tree_leaves(tree), jax.tree_util.tree_leaves(new)):
+            assert x.shape == y.shape and np.array_equal(x, np.asarray(y))
+    build_model(tcfg, device="cpu").load_state_dict(sd, strict=True)
+
+
+def test_unknown_backbone_raises():
+    cfg = get_default_cfg()
+    cfg.MODEL.BACKBONE.NAME = "build_vgg_fpn_backbone"
+    with pytest.raises(ValueError, match="Unknown backbone builder build_vgg_fpn_backbone"):
         build_model(cfg, device="cpu")

@@ -338,3 +338,55 @@ def test_one_rank_over_nccl_steps_as_without_a_process_group(device):
         assert abs(ddp[0][k] - v) <= 1e-4 * abs(v) + 1e-7, k
     for n, g in plain[1].items():
         assert float((ddp[1][n] - g).abs().max()) <= 1e-3 * float(g.abs().max()) + 1e-6, n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("opts", [
+    ("MODEL.BACKBONE.NAME", "build_resnet_from_vision_fpn_backbone", "MODEL.RESNETS.DEPTH", "34"),
+    ("MODEL.BACKBONE.NAME", "build_densenet_fpn_backbone"),
+    ("MODEL.BACKBONE.NAME", "build_mnasnet_fpn_backbone"),
+    ("MODEL.BACKBONE.NAME", "build_shufflenet_fpn_backbone"),
+    ("MODEL.DLA.TYPE", "dla102x")], ids=["resnet34", "densenet", "mnasnet", "shufflenet",
+                                         "dla102x"])
+def test_backbone_family_runs_on_the_card(device, opts):
+    """Each backbone family (narrow heads, 256 px, seeded weights): the f32
+    features on the card (TF32 off) within 1e-4 of the CPU's largest value
+    per map; bf16 inference with two forward launches and finite outputs;
+    one bf16 training step with one forward and one backward launch and a
+    finite loss."""
+    from omni3d_tpu_torch.config import get_default_cfg
+    from omni3d_tpu_torch.models import rcnn3d
+    from omni3d_tpu_torch.tools.synthetic import synthetic_trainer, train_batch
+
+    cfg = get_default_cfg()
+    cfg.merge_from_list(["MODEL.ROI_HEADS.NUM_CLASSES", "5", "MODEL.FPN.OUT_CHANNELS", "64",
+                         "MODEL.ROI_BOX_HEAD.FC_DIM", "128", "MODEL.ROI_CUBE_HEAD.FC_DIM", "128",
+                         "TPU.COMPUTE_DTYPE", "float32", *opts])
+    images = train_batch(cfg, 2, "cpu", img=256)["images"]
+    feats = {}
+    for dev in ("cpu", device):
+        model = rcnn3d.build_model(cfg, device=dev, seed=0)
+        with torch.no_grad():
+            feats[str(dev)] = {k: v.float().cpu() for k, v in model.features(images.to(dev))[0]
+                               .items()}
+    for k, want in feats["cpu"].items():
+        err = float((feats[str(device)][k] - want).abs().max())
+        assert err <= 1e-4 * float(want.abs().max()), (k, err)
+
+    model = rcnn3d.build_model(cfg, device=device, dtype=torch.bfloat16, seed=0)
+    K = torch.tensor([[256.0, 0, 128], [0, 256.0, 128], [0, 0, 1]], device=device).expand(2, 3, 3)
+    before = multilevel_roi_align.launches
+    out = rcnn3d.inference(model, images.to(device), K.contiguous(), torch.ones(2, device=device),
+                           **rcnn3d.inference_kwargs(cfg))
+    torch.cuda.synchronize()
+    assert multilevel_roi_align.launches - before == 2
+    assert all(bool(torch.isfinite(v.float()).all()) for v in out.values()
+               if v.is_floating_point())
+
+    model, _, step, batch = synthetic_trainer(cfg, torch.bfloat16, 2, device, img=256)
+    before = (multilevel_roi_align.launches, multilevel_roi_align.bwd_launches)
+    logs = step(batch, torch.Generator().manual_seed(0))
+    torch.cuda.synchronize()
+    assert (multilevel_roi_align.launches - before[0],
+            multilevel_roi_align.bwd_launches - before[1]) == (1, 1)
+    assert logs["finite"] == 1.0 and bool(torch.isfinite(torch.as_tensor(logs["total_loss"])))

@@ -239,8 +239,9 @@ def test_cube_losses_match_jax_in_every_branch(branch):
 
 def test_train_bn_matches_flax_and_eval_is_frozen_bn():
     """Batch statistics in f32 with the biased variance, for the output and
-    the running update (momentum 0.1); eval mode bit-equal to
-    FrozenBatchNorm2d in f32 and bf16."""
+    the running update (momentum 0.1); eval mode applies the updated
+    running statistics as the JAX package's `_EvalBN` does (f32 to
+    rounding, bf16 bit for bit)."""
     rng = np.random.default_rng(6)
     x = (rng.normal(0.5, 2.0, (3, 5, 6, 8))).astype(np.float32)            # NHWC
     scale, bias = rng.uniform(0.5, 1.5, 8).astype(np.float32), rng.normal(0, 1, 8).astype(np.float32)
@@ -265,12 +266,20 @@ def test_train_bn_matches_flax_and_eval_is_frozen_bn():
                                np.asarray(upd["batch_stats"]["bn"]["mean"]), rtol=1e-6, atol=1e-7)
     assert isinstance(tbn.weight, torch.nn.Parameter) and isinstance(tbn.bias, torch.nn.Parameter)
 
-    frozen = tlayers.FrozenBatchNorm2d(8)
-    frozen.load_state_dict(tbn.state_dict(), strict=True)
     tbn.eval()
-    for dtype in (torch.float32, torch.bfloat16):
+    evaluated = {"params": {"bn": {"scale": scale, "bias": bias}},
+                 "batch_stats": {"bn": {"mean": tbn.running_mean.numpy(),
+                                        "var": tbn.running_var.numpy()}}}
+    for dtype, atol in ((torch.float32, 1e-6), (torch.bfloat16, 0)):
         xi = t(x).permute(0, 3, 1, 2).to(dtype)
-        assert torch.equal(tbn(xi), frozen(xi))
+        jdt = jnp.dtype(str(dtype).replace("torch.", ""))
+        want = jlayers.BatchNorm(use_running_average=True, dtype=jdt).apply(
+            evaluated, jnp.asarray(x).astype(jdt))
+        with torch.no_grad():
+            got = tbn(xi)
+        assert got.dtype == dtype
+        np.testing.assert_allclose(got.float().permute(0, 2, 3, 1).numpy(),
+                                   np.asarray(want.astype(jnp.float32)), atol=atol, rtol=0)
     with torch.no_grad():
         assert tbn.train()(t(x).permute(0, 3, 1, 2).bfloat16()).dtype == torch.bfloat16
 
@@ -352,6 +361,56 @@ def test_one_pooler_call_per_step(slice_setup, monkeypatch):
     total.backward()
     S = tcfg.MODEL.ROI_HEADS.BATCH_SIZE_PER_IMAGE
     assert calls == [torch.Size([2, S + int(S * tcfg.MODEL.ROI_HEADS.POSITIVE_FRACTION), 4])]
+
+
+def test_remat_backbone_gives_the_same_step(slice_setup):
+    """TPU.REMAT_BACKBONE recomputes the features in the backward
+    (torch.utils.checkpoint) and gives the step it gives without: the same
+    losses, gradients and BN running statistics, bit for bit; the
+    recomputing forward moves the statistics no second time."""
+    _, tcfg, _, _, variables, batch = slice_setup
+    R = sum(3 * (64 // s) ** 2 for s in STRIDES)
+    noise = ttrain.sampling_noise(torch.Generator().manual_seed(3), 2, R,
+                                  32 + batch["gt_boxes"].shape[1], "cpu")
+    runs = []
+    for remat in (False, True):
+        cfg = tcfg.clone()
+        cfg.TPU.REMAT_BACKBONE = remat
+        model = _port_train_model(cfg, variables)
+        seen = []
+        hook = model.backbone.register_forward_pre_hook(lambda *_: seen.append(1))
+        total, losses, _ = ttrain.compute_losses(model, _torch_batch(batch), noise=noise)
+        total.backward()
+        hook.remove()
+        assert len(seen) == (2 if remat else 1)    # the backward ran the features again
+        runs.append(({k: v.detach() for k, v in losses.items()},
+                     {k: p.grad for k, p in model.named_parameters() if p.grad is not None},
+                     {k: v for k, v in model.state_dict().items() if "running_" in k}))
+    (la, ga, sa), (lb, gb, sb) = runs
+    assert set(la) == set(lb) and set(ga) == set(gb) and set(sa) == set(sb)
+    for k in la:
+        assert torch.equal(la[k], lb[k]), k
+    for k in ga:
+        assert torch.equal(ga[k], gb[k]), k
+    before = state_dict_from_flax({}, variables["batch_stats"])
+    for k in sa:
+        assert torch.equal(sa[k], sb[k]), k
+    assert any(not torch.equal(sa[k], before[k]) for k in sa)
+
+
+def test_step_calls_compute_losses_by_its_module_name(slice_setup, monkeypatch):
+    """`make_train_step` looks `compute_losses` up at each call, so a
+    profiler that wraps `engine.train.compute_losses` after the step is
+    built (tools/profile_train.py) times every step's forward."""
+    _, tcfg, _, _, variables, batch = slice_setup
+    model = _port_train_model(tcfg, variables)
+    opt = build_optimizer(tcfg, model)
+    step = ttrain.make_train_step(tcfg, model, opt, build_lr_schedule(tcfg, opt))
+    calls = []
+    real = ttrain.compute_losses
+    monkeypatch.setattr(ttrain, "compute_losses", lambda *a: calls.append(1) or real(*a))
+    step(_torch_batch(batch), torch.Generator().manual_seed(0))
+    assert calls == [1]
 
 
 def test_frozen_bn_training_keeps_statistics_and_trains_the_affine(slice_setup):

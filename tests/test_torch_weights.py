@@ -85,12 +85,44 @@ def test_imagenet_dla34_loads_as_jax_converts_it(setup, tmp_path):
         assert torch.equal(got[k].float(), v), k
         assert torch.equal(got[k], before[k]) != k.startswith(prefix), k   # only the trunk moved
     assert trep["loaded"] == jrep["loaded"] and not trep["missing"] and not trep["unused"]
-    with pytest.raises(NotImplementedError):
-        tckpt.convert_imagenet_backbone(imagenet, model, "build_resnet_from_vision_fpn_backbone")
+    for convert, weights in ((tckpt.convert_imagenet_backbone, (model,)),
+                             (jckpt.convert_imagenet_backbone, (variables["params"],
+                                                                variables["batch_stats"]))):
+        with pytest.raises(KeyError, match="build_vgg_fpn_backbone"):   # an unknown builder
+            convert(imagenet, *weights, "build_vgg_fpn_backbone")
 
     # the model zoo finds it as the JAX package does
     jcfg.TPU.IMAGENET_WEIGHTS_DIR = tcfg.TPU.IMAGENET_WEIGHTS_DIR = str(tmp_path)
     assert tzoo.find_imagenet_weights(tcfg) == jzoo.find_imagenet_weights(jcfg) == path
+
+
+# file names of the published ImageNet weights, one per family
+IMAGENET_FILES = {
+    ("build_dla_from_vision_fpn_backbone", "dla60x"): "dla60x-d15cacda.pth",
+    ("build_resnet_from_vision_fpn_backbone", 34): "resnet34-b627a593.pth",
+    ("build_resnet_from_vision_fpn_backbone", 101): "resnet101-63fe2227.pth",
+    ("build_densenet_fpn_backbone", None): "densenet121-a639ec97.pth",
+    ("build_mnasnet_fpn_backbone", None): "mnasnet1.0_top1_73.512-f206786ef8.pth",
+    ("build_shufflenet_fpn_backbone", None): "shufflenetv2_x1-5666bf0f80.pth",
+}
+
+
+@pytest.mark.parametrize("family", list(IMAGENET_FILES), ids=lambda f: IMAGENET_FILES[f][:8])
+def test_find_imagenet_weights_finds_each_familys_file_as_jax_does(family, tmp_path):
+    """With every family's file in TPU.IMAGENET_WEIGHTS_DIR, the port and
+    the JAX package pick the same file for the config's backbone: its own."""
+    for name in IMAGENET_FILES.values():
+        (tmp_path / name).write_bytes(b"")
+    builder, variant = family
+    jcfg, tcfg = small_cfgs(**{"MODEL.BACKBONE.NAME": builder})
+    for cfg in (jcfg, tcfg):
+        cfg.TPU.IMAGENET_WEIGHTS_DIR = str(tmp_path)
+        if isinstance(variant, str):
+            cfg.MODEL.DLA.TYPE = variant
+        elif variant:
+            cfg.MODEL.RESNETS.DEPTH = variant
+    got = tzoo.find_imagenet_weights(tcfg)
+    assert got == jzoo.find_imagenet_weights(jcfg) == str(tmp_path / IMAGENET_FILES[family])
 
 
 def test_model_zoo_resolves_without_downloading(tmp_path, monkeypatch):

@@ -106,3 +106,54 @@ def t(x, dtype=None):
     """numpy -> torch (CPU)."""
     x = torch.from_numpy(np.array(x))
     return x if dtype is None else x.to(dtype)
+
+
+BOTTOM_UP = "backbone.bottom_up."
+
+
+def port_trunk(module, variables):
+    """The port's bottom-up `module` holding a JAX trunk's `variables` (its
+    own params / batch_stats collections), through `state_dict_from_flax`
+    under the model's `backbone` scope; loaded strictly."""
+    sd = state_dict_from_flax({"backbone": variables["params"]},
+                              {"backbone": variables.get("batch_stats", {})})
+    module.load_state_dict({k[len(BOTTOM_UP):]: v for k, v in sd.items()}, strict=True)
+    return module
+
+
+def trunk_parity(jax_trunk, jax_trunk_train, port_module, hw, seed=0, eval_rtol=1e-5,
+                 train_rtol=5e-3, jit=True):
+    """Hold the port's trunk against the JAX trunk on the same seeded
+    weights and a batch of 2 random images at `hw`, in f32: p2..p6 in eval
+    mode within eval_rtol of each map's largest magnitude; in train mode
+    p2..p6 and the updated BN running statistics within train_rtol of each
+    tensor's largest. `jit` False runs the JAX trunks op by op (quicker than
+    compiling them for DLA trees; the same XLA CPU arithmetic per op)."""
+    maybe_jit = jax.jit if jit else (lambda f: f)
+    variables = random_variables(jax_trunk, hw, seed)
+    x = np.random.default_rng(seed + 1).standard_normal((2,) + tuple(hw) + (3,)).astype(
+        np.float32)
+    jv, jx = to_jnp(variables), jnp.asarray(x)
+    model = port_trunk(port_module, variables)
+
+    def compare(got, want, rtol, what):
+        for name in ("p2", "p3", "p4", "p5", "p6"):
+            g = got[name].permute(0, 2, 3, 1).detach().numpy()
+            w = np.asarray(want[name])
+            assert g.shape == w.shape, (what, name, g.shape, w.shape)
+            rel = float(np.abs(g - w).max() / np.abs(w).max())
+            assert rel <= rtol, (what, name, rel)
+
+    want = maybe_jit(jax_trunk.apply)(jv, jx)
+    with torch.no_grad():
+        compare(model.eval()(t(x).permute(0, 3, 1, 2)), want, eval_rtol, "eval")
+    want, upd = maybe_jit(lambda v, im: jax_trunk_train.apply(v, im, mutable=["batch_stats"]))(
+        jv, jx)
+    with torch.no_grad():
+        compare(model.train()(t(x).permute(0, 3, 1, 2)), want, train_rtol, "train")
+    stats = state_dict_from_flax({}, {"backbone": jax.tree.map(np.asarray, upd["batch_stats"])})
+    own = model.state_dict()
+    assert len(stats) == sum(k.endswith(("running_mean", "running_var")) for k in own)
+    for k, w in stats.items():
+        rel = float((own[k[len(BOTTOM_UP):]] - w).abs().max() / w.abs().max())
+        assert rel <= train_rtol, (k, rel)
