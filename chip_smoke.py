@@ -2,6 +2,7 @@
 """Drive the PyTorch port's main paths once on an NVIDIA GPU.
 
     python3 chip_smoke.py        # from the root of a checkout, one CUDA card
+    python3 chip_smoke.py --gate-probe N   # only phase 5's old gate state, N times
 
 Phases (each raises on failure):
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
@@ -30,7 +31,19 @@ Phases (each raises on failure):
      exactly one forward and one backward launch per step, finite losses,
      parameters and BN statistics moving, ms/step, img/s, peak memory; a
      NaN batch the stabilizer skips; one float32 step with the plain pooler
-     (forward and backward) against the kernels' step;
+     (forward and backward) against the kernels' step, compared with
+     cuDNN's deterministic algorithms at two reproducible states: the
+     seeded weights of a freshly built model, and those weights after the
+     f32 run's 7 steps replayed with noise from a fixed generator. At both,
+     the kernels' gradient error is at most CONTROL_MULTIPLE times that of
+     the plain pooler against itself nudged by two ULPs, and the kernels
+     with their backward scaled by 1.05 (a planted fault) exceed it; at the
+     replayed state also losses rel 1e-4 and gradients 1e-3 of each
+     tensor's largest, which the planted fault fails. Logged beside them,
+     each with its worst tensor and the cube losses' L1 signs, chamfer
+     argmins, ROI-head ReLU signs and uncertainty clamps that differ
+     between the two steps: the kernels against themselves, and the
+     comparison from the state after the timed steps;
   6. the training entry point: a synthetic Omni3D-format dataset written
      from a seed (48 PPM images at SUN RGB-D's 530 x 730, 16 PNG images at
      KITTI's 375 x 1242, the 50 categories, 1-20 objects each), then
@@ -96,7 +109,25 @@ Phases (each raises on failure):
      launches, `check_outputs`) and one bf16 batch-8 training step (one
      forward and one backward launch, finite losses) each, with build and
      warm-up seconds, ms and peak memory; inference models with the pose
-     bias as in phase 3. It prints the `backbones:` JSON line.
+     bias as in phase 3. It prints the `backbones:` JSON line;
+ 10. the demo: every JPEG fixture of tests/data/jpeg decoded bit-equal to
+     its committed cv2 decode (the progressive one refused), the decode ms
+     of the 640 x 480 q95 file; `tools.demo` at full width in bfloat16 with
+     phase 6's model_final.ckpt on the 640 x 480 and 1242 x 375 fixtures at
+     threshold 0: exactly two forward launches per image, the first pooler
+     call at each shape held against the plain pooler (phase 2's
+     tolerances), each image's detections against a direct
+     `rcnn3d.inference` call on the same input (phase 3's tolerances), the
+     _boxes / _novel / _bev PNGs read back at the input size / 512 x 512 /
+     400 x 400, ms per image by stage and the inference again at each
+     shape (steady state); `render_depth_map` on the card and
+     on the CPU on 20 boxes at 640 x 480 (silhouettes and nearest-instance
+     indices equal, depth within 1e-5 relative); `tools.train_net` for 5
+     iterations on phase 6's dataset with VIS_PERIOD 2 and TEST.EVAL_PERIOD
+     4 on phase 7's splits: the GT-vs-prediction panels after iterations 2
+     and 4, the evaluation's sample dumps, and the dumps at score threshold
+     0 where the sampled images have predictions. It prints the `demo:`
+     JSON line.
 The line before the last is the kernel summary as JSON; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -124,6 +155,12 @@ BF16_MAX_MISMATCH = 1e-3   # share of elements allowed to differ at all
 TRAIN_ROIS = 512 + 128           # per image: sampled box RoIs + foreground cube RoIs
 TRAIN_SETTINGS = (("float32", 8), ("bfloat16", 32))   # (compute dtype, batch)
 WARMUP_STEPS, TIMED_STEPS = 2, 5
+# phase 5's gate: the kernels' gradient error against the plain pooler's at
+# most this many times the plain pooler's own error when its output is
+# nudged by two float32 ULPs, at the same state; the planted fault (the
+# kernels' backward scaled by PLANTED_BWD_SCALE) must exceed it
+CONTROL_MULTIPLE = 4
+PLANTED_BWD_SCALE = 1.05
 ENTRY_RESUME_TO = 32             # phase 6: tools.profile_entry's STEPS (24), then resumed to 32
 # phase 7's test splits: name -> (images, height, width, format, focal), SUN
 # RGB-D's and KITTI's image sizes and focal lengths (MIN_SIZE_TEST 512 pads
@@ -676,37 +713,266 @@ def train_path(device):
     print("  NaN pixel: step skipped; parameters, BN statistics and optimizer state "
           "bit-equal to before")
 
-    # the kernels' step vs the plain pooler's, from the same state and noise
+    # the kernels' step vs the plain pooler's, on the same inputs, at two
+    # reproducible states, compared with cuDNN's deterministic algorithms so
+    # that the two steps differ by the pooler alone: the seeded weights of a
+    # freshly built f32 model, and those weights after the f32 run's
+    # WARMUP_STEPS + TIMED_STEPS steps replayed on its synthetic batch with
+    # noise from a fixed generator (the same parameters in every run). At
+    # each state the control is the plain pooler against itself nudged by
+    # two float32 ULPs (how far a rounding-sized change of the pooler moves
+    # the gradients there): the kernels' gradient error must stay within
+    # CONTROL_MULTIPLE times the control's, and a planted fault (the
+    # kernels' backward scaled by PLANTED_BWD_SCALE) must fail that. At the
+    # replayed state the absolute tolerances hold as well (losses 1e-4,
+    # gradients 1e-3 of each tensor's largest), and reject the planted fault.
+    # At the seeded weights the control itself exceeds 1e-3, so only the
+    # relative gate applies there. Logged beside them: the kernels against
+    # themselves, each comparison's worst tensor and cube-loss L1-sign /
+    # chamfer-argmin switches, and the comparison from the state after the
+    # timed steps (cuDNN's default algorithms), where the gate used to start.
     bs = batch["images"].shape[0]
     R = sum(3 * (IMG // s) ** 2 for s in STRIDES)
-    noise = train_mod.sampling_noise(kept["gen"], bs, R,
-                                     cfg.MODEL.RPN.POST_NMS_TOPK_TRAIN + GT_SLOTS, device)
+    n_cand = cfg.MODEL.RPN.POST_NMS_TOPK_TRAIN + GT_SLOTS
+    after_steps = _pooler_step_pair(train_mod, model, batch,
+                                    train_mod.sampling_noise(kept["gen"], bs, R, n_cand, device),
+                                    multilevel_roi_align, plain_pool)
+    del kept, model, opt, step, batch
+    torch.cuda.empty_cache()
+    model, _, step, batch = synthetic_trainer(cfg, torch.float32, bs, device, img=IMG)
+    comparisons = {}
+    torch.backends.cudnn.deterministic = True
+    try:
+        gen = torch.Generator().manual_seed(0)
+        noise = train_mod.sampling_noise(torch.Generator().manual_seed(0), bs, R, n_cand, device)
+        comparisons.update(_gate_comparisons(train_mod, model, batch, noise, "seeded"))
+        for _ in range(WARMUP_STEPS + TIMED_STEPS):
+            step(batch, gen)
+        checksum = float(sum(p.detach().double().abs().sum() for p in model.parameters()))
+        noise = train_mod.sampling_noise(gen, bs, R, n_cand, device)
+        comparisons.update(_gate_comparisons(train_mod, model, batch, noise, "gate_state"))
+    finally:
+        torch.backends.cudnn.deterministic = False
+    comparisons["after_timed_steps_kernel_vs_plain_cudnn_default"] = after_steps
+    for label, r in comparisons.items():
+        print(f"  f32 bs={bs} step, {label.replace('_', ' ')}: {_cmp_line(r)}")
+    for state in ("seeded", "gate_state"):
+        got, ctl, fault = (comparisons[f"{state}_{k}"] for k in
+                           ("kernel_vs_plain", "plain_vs_plain_nudged", "planted_fault_vs_plain"))
+        print(f"  {state.replace('_', ' ')}: kernels vs plain {got['grad_rel']:.2e}, planted fault "
+              f"{fault['grad_rel']:.2e}, against {CONTROL_MULTIPLE} x the two-ULP control "
+              f"{ctl['grad_rel']:.2e} = {CONTROL_MULTIPLE * ctl['grad_rel']:.2e}")
+        assert got["grad_rel"] <= CONTROL_MULTIPLE * ctl["grad_rel"], (state, got, ctl)
+        assert fault["grad_rel"] > CONTROL_MULTIPLE * ctl["grad_rel"], (state, fault, ctl)
+    gate = comparisons["gate_state_kernel_vs_plain"]
+    print(f"  the gate (seeded weights after {WARMUP_STEPS + TIMED_STEPS} deterministic steps, "
+          f"parameters' sum of |w| {checksum:.10e}; cuDNN deterministic; kernels vs plain "
+          f"pooler): losses {gate['loss_rel']:.2e} (tol 1e-4), gradients {gate['grad_rel']:.2e} "
+          "(tol 1e-3 of each tensor's largest); the planted fault over it in "
+          f"{len(comparisons['gate_state_planted_fault_vs_plain']['over_tol'])} tensors")
+    assert gate["loss_rel"] <= 1e-4, gate
+    assert not gate["over_tol"], gate["over_tol"]
+    assert comparisons["gate_state_planted_fault_vs_plain"]["over_tol"], "planted fault passed"
+    del model, step, batch
+    torch.cuda.empty_cache()
+    loss_err, grad_err = gate["loss_rel"], gate["grad_rel"]
+    return rows, launches, dict(loss_rel=loss_err, grad_rel=grad_err, gate_state_checksum=checksum,
+                                comparisons=comparisons)
+
+
+def _gate_comparisons(train_mod, model, batch, noise, state):
+    """Phase 5's comparisons at one state: {f"{state}_{label}": the
+    `_pooler_step_pair` result} for the kernels against the plain pooler,
+    the kernels against themselves, the two-ULP control and the planted
+    fault."""
+    from omni3d_tpu_torch.ops.roi_align_cuda import multilevel_roi_align
+    pairs = (("kernel_vs_plain", multilevel_roi_align, plain_pool),
+             ("kernel_vs_kernel", multilevel_roi_align, multilevel_roi_align),
+             ("plain_vs_plain_nudged", plain_pool, plain_pool_nudged),
+             ("planted_fault_vs_plain", kernel_pool_bwd_scaled, plain_pool))
+    return {f"{state}_{label}": _pooler_step_pair(train_mod, model, batch, noise, a, b)
+            for label, a, b in pairs}
+
+
+def _cmp_line(r):
+    return (f"losses max rel diff {r['loss_rel']:.2e}; gradients max |diff| / max|g| "
+            f"{r['grad_rel']:.2e} over {r['tensors']} tensors, worst {r['worst_tensor']}; "
+            f"cube-loss switches {r['l1_sign_switches']} L1 signs, "
+            f"{r['chamfer_argmin_switches']} chamfer argmins (smallest chamfer margin "
+            f"{r['chamfer_min_margin']:.2e}); ROI-head ReLU switches {r['relu_switches']}, "
+            f"uncertainty clamp switches {r['uncert_clamp_switches']}")
+
+
+def plain_pool_nudged(features, boxes, strides, out_size, sampling_ratio, min_level=2,
+                      routing="canonical"):
+    """`plain_pool` with its output, and so the gradient through it, scaled
+    by 1 + 2^-22: two float32 ULPs, the size of the kernels' rounding
+    difference from the plain pooler, as a pooler that is right to
+    rounding."""
+    return plain_pool(features, boxes, strides, out_size, sampling_ratio, min_level,
+                      routing) * (1.0 + 2.0 ** -22)
+
+
+def kernel_pool_bwd_scaled(features, boxes, strides, out_size, sampling_ratio, min_level=2,
+                           routing="canonical"):
+    """The kernels' `multilevel_roi_align` with the gradient through it
+    scaled by PLANTED_BWD_SCALE: a planted fault that phase 5's gate must
+    reject."""
+    import torch
+    from omni3d_tpu_torch.ops.roi_align_cuda import multilevel_roi_align
+
+    class ScaledBackward(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x):
+            return x.clone()
+
+        @staticmethod
+        def backward(ctx, g):
+            return g * PLANTED_BWD_SCALE
+
+    return ScaledBackward.apply(multilevel_roi_align(features, boxes, strides, out_size,
+                                                     sampling_ratio, min_level, routing))
+
+
+def _pooler_step_pair(train_mod, model, batch, noise, first, second):
+    """One f32 step's losses and parameter gradients with the pooler `first`
+    and with `second` (the kernels' `multilevel_roi_align`, `plain_pool` or
+    `plain_pool_nudged`), from `model`'s state (restored after), on `batch`
+    and `noise`. Returns the
+    losses' largest relative difference, the gradients' largest
+    |difference| / largest |gradient| and the tensor it is in, the tensors
+    over the 1e-3 tolerance, and how many L1 signs and chamfer argmins of
+    the cube losses, ReLU signs of the ROI heads' FC stacks (per call, in
+    call order) and the cube head's uncertainty clamps (at 0.01) differ
+    between the two steps (a term switching at a
+    near-tie changes the gradient by a whole step; the smallest chamfer
+    margin says how near)."""
+    import torch
+    from omni3d_tpu_torch.models import heads, roi_training
+    from omni3d_tpu_torch.ops.roi_align_cuda import multilevel_roi_align
+    sd = {k: v.clone() for k, v in model.state_dict().items()}
+    real_l1, real_chamfer = roi_training.l1_corner_loss, roi_training.chamfer_corner_loss
+    real_f = heads.F
     results = {}
-    for label, pool in (("kernel", multilevel_roi_align), ("plain", plain_pool)):
+    for label, pool in (("first", first), ("second", second)):
+        seen = []
+
+        class RecordingF:
+            """torch.nn.functional with `relu` recording its input's signs."""
+            def __getattr__(self, name):
+                return getattr(real_f, name)
+
+            @staticmethod
+            def relu(x, *args, **kwargs):
+                seen.append(("relu", (x > 0).detach()))
+                return real_f.relu(x, *args, **kwargs)
+
+        def l1(pred, gt):
+            seen.append(("l1", torch.sign(pred - gt).detach()))
+            return real_l1(pred, gt)
+
+        def chamfer(pred, gt):
+            d = (pred[:, :, None, :] - gt[:, None, :, :]).abs().sum(-1).detach()
+            two = torch.cat([d.topk(2, dim=1, largest=False).values,
+                             d.topk(2, dim=2, largest=False).values.transpose(1, 2)], -1)
+            seen.append(("chamfer", torch.cat([d.argmin(1), d.argmin(2)], -1),
+                         float((two[:, 1] - two[:, 0]).min())))
+            return real_chamfer(pred, gt)
+
         model.load_state_dict(sd)
         model.zero_grad(set_to_none=True)
         train_mod.multilevel_roi_align = pool
+        roi_training.l1_corner_loss, roi_training.chamfer_corner_loss = l1, chamfer
+        heads.F = RecordingF()
+        hooks = [m.register_forward_hook(lambda m, i, out: seen.append(("clamp", out > 0.01)))
+                 for n, m in model.named_modules() if n.endswith("bbox_3D_uncertainty")]
         try:
             total, losses, _ = train_mod.compute_losses(model, batch, noise=noise)
             total.backward()
         finally:
+            for h in hooks:
+                h.remove()
             train_mod.multilevel_roi_align = multilevel_roi_align
+            roi_training.l1_corner_loss, roi_training.chamfer_corner_loss = real_l1, real_chamfer
+            heads.F = real_f
         torch.cuda.synchronize()
-        results[label] = ({k: float(v) for k, v in losses.items()},
+        results[label] = ({k: float(v.detach()) for k, v in losses.items()},
                           {n: p.grad.clone() for n, p in model.named_parameters()
-                           if p.grad is not None})
+                           if p.grad is not None}, seen)
     model.load_state_dict(sd)
-    (kl, kg), (pl, pg) = results["kernel"], results["plain"]
-    loss_err = _loss_rel(kl, pl)
-    assert set(kg) == set(pg)
-    grad_err = _grad_rel(kg, pg)
-    print(f"  f32 bs={bs} step, kernels vs plain pooler: losses max rel diff {loss_err:.2e} "
-          f"(tol 1e-4); gradients max |diff| / max|g| {grad_err:.2e} over {len(pg)} tensors "
-          f"(tol 1e-3)")
-    assert loss_err <= 1e-4, (kl, pl)
-    for n in pg:
-        assert float((kg[n] - pg[n]).abs().max()) <= 1e-3 * float(pg[n].abs().max()) + 1e-6, n
-    return rows, launches, dict(loss_rel=loss_err, grad_rel=grad_err)
+    model.zero_grad(set_to_none=True)
+    (kl, kg, ks), (pl, pg, ps) = results["first"], results["second"]
+    assert set(kg) == set(pg) and len(ks) == len(ps)
+    errs = {n: float((kg[n] - pg[n]).abs().max()) / (float(pg[n].abs().max()) + 1e-12)
+            for n in pg}
+    worst = max(errs, key=errs.get)
+    over = {n: errs[n] for n in pg
+            if float((kg[n] - pg[n]).abs().max()) > 1e-3 * float(pg[n].abs().max()) + 1e-6}
+    margins = [a[2] for a in ks if a[0] == "chamfer"]
+    return dict(loss_rel=_loss_rel(kl, pl), grad_rel=errs[worst], worst_tensor=worst,
+                tensors=len(pg), over_tol=over,
+                l1_sign_switches=sum(int((a[1] != b[1]).sum()) for a, b in zip(ks, ps)
+                                     if a[0] == "l1"),
+                chamfer_argmin_switches=sum(int((a[1] != b[1]).sum()) for a, b in zip(ks, ps)
+                                            if a[0] == "chamfer"),
+                relu_switches=[int((a[1] != b[1]).sum()) for a, b in zip(ks, ps)
+                               if a[0] == "relu"],
+                uncert_clamp_switches=sum(int((a[1] != b[1]).sum()) for a, b in zip(ks, ps)
+                                          if a[0] == "clamp"),
+                chamfer_min_margin=min(margins) if margins else float("nan"))
+
+
+def gate_probe(device, replays):
+    """`--gate-probe N`: phase 5's old gate state, rebuilt N times. Each
+    replay builds the seeded f32 model, takes the f32 run's WARMUP_STEPS +
+    TIMED_STEPS steps with cuDNN's default algorithms (a slightly different
+    state each time), and compares the step with the kernels against the
+    plain pooler's, the kernels against themselves and the two-ULP control,
+    under the default algorithms (as the old gate did) and under the
+    deterministic ones. Prints a line per replay and a `gate probe:` JSON
+    line; asserts nothing."""
+    import torch
+    from omni3d_tpu_torch.config import get_default_cfg
+    from omni3d_tpu_torch.engine import train as train_mod
+    from omni3d_tpu_torch.ops.roi_align_cuda import multilevel_roi_align
+    from omni3d_tpu_torch.tools.synthetic import GT_SLOTS, synthetic_trainer
+
+    cfg = get_default_cfg()
+    cfg.merge_from_file(os.path.join(ROOT, "configs", "cubercnn_DLA34_FPN.yaml"))
+    bs = dict(TRAIN_SETTINGS)["float32"]
+    R = sum(3 * (IMG // s) ** 2 for s in STRIDES)
+    n_cand = cfg.MODEL.RPN.POST_NMS_TOPK_TRAIN + GT_SLOTS
+    pairs = {"default": (("kernel_vs_plain", multilevel_roi_align, plain_pool),
+                         ("kernel_vs_kernel", multilevel_roi_align, multilevel_roi_align),
+                         ("plain_vs_plain_nudged", plain_pool, plain_pool_nudged)),
+             "deterministic": (("kernel_vs_plain", multilevel_roi_align, plain_pool),
+                               ("plain_vs_plain_nudged", plain_pool, plain_pool_nudged))}
+    rows = []
+    for r in range(replays):
+        model, _, step, batch = synthetic_trainer(cfg, torch.float32, bs, device, img=IMG)
+        gen = torch.Generator().manual_seed(0)
+        for _ in range(WARMUP_STEPS + TIMED_STEPS):
+            step(batch, gen)
+        noise = train_mod.sampling_noise(gen, bs, R, n_cand, device)
+        row = dict(replay=r, checksum=float(sum(p.detach().double().abs().sum()
+                                                for p in model.parameters())))
+        for mode, mode_pairs in pairs.items():
+            torch.backends.cudnn.deterministic = mode == "deterministic"
+            try:
+                for label, a, b in mode_pairs:
+                    row[f"{mode}_{label}"] = _pooler_step_pair(train_mod, model, batch, noise, a, b)
+            finally:
+                torch.backends.cudnn.deterministic = False
+        rows.append(row)
+        print(f"  replay {r}: sum of |w| {row['checksum']:.10e}; " + "; ".join(
+            f"{k.replace('_', ' ')} {v['grad_rel']:.2e} ({v['worst_tensor']}, "
+            f"{len(v['over_tol'])} over 1e-3, ReLU switches {v['relu_switches']}, "
+            f"clamp {v['uncert_clamp_switches']})"
+            for k, v in row.items() if isinstance(v, dict)),
+            flush=True)
+        del model, step, batch
+        torch.cuda.empty_cache()
+    print("gate probe: " + json.dumps(rows))
 
 
 def entry_point_path(device, tmp):
@@ -1717,6 +1983,233 @@ def backbones_path(device, tmp, dla_inference, dla_training):
     return summary, launches
 
 
+# phase 10: the demo, the JPEG decoder, the rasterizer and training visualisation
+JPEG_DIR = os.path.join(ROOT, "tests", "data", "jpeg")
+DEMO_IMAGES = ("q95_420_640x480", "q75_420_1242x375")
+VIS_STEPS, VIS_PERIOD, VIS_EVAL_PERIOD = 5, 2, 4   # 10d: panels after iterations 2 and 4
+RENDER_BOXES, RENDER_HW = 20, (480, 640)
+DEMO_STEADY_CALLS = 5          # 10b: demo.infer again per image, after the demo
+
+
+def demo_path(device, tmp, weights):
+    """Phase 10: (a) every JPEG fixture decoded bit-equal to its committed
+    cv2 decode; (b) `tools.demo` at full width in bfloat16 with phase 6's
+    model_final.ckpt on the 640 x 480 and 1242 x 375 fixtures at threshold
+    0: two forward launches per image, the first pooler call held against
+    the plain pooler, each image's detections against a direct
+    `rcnn3d.inference` call on the same input (phase 3's tolerances), the
+    three PNGs read back at their sizes, ms per image by stage; (c)
+    `render_depth_map` on the card against the CPU on 20 boxes at 640 x
+    480; (d) `tools.train_net` with VIS_PERIOD and TEST.EVAL_PERIOD on phase
+    6's dataset and phase 7's test splits: the panels at the expected
+    iterations, the evaluation's sample dumps. Returns (summary, launches)."""
+    import glob
+    import shutil
+
+    import numpy as np
+    import torch
+    from omni3d_tpu_torch.data import datasets as data_lib
+    from omni3d_tpu_torch.data.image import read_image_bgr
+    from omni3d_tpu_torch.data.jpeg import decode_jpeg
+    from omni3d_tpu_torch.evaluation.error_stats import visualize_from_predictions
+    from omni3d_tpu_torch.evaluation.omni3d_eval import Omni3DEvaluationHelper
+    from omni3d_tpu_torch.models import rcnn3d
+    from omni3d_tpu_torch.ops.roi_align_cuda import multilevel_roi_align
+    from omni3d_tpu_torch.tools import demo, train_net
+    from omni3d_tpu_torch.tools.profile_entry import SPLITS, train_argv
+    from omni3d_tpu_torch.utils import geometry as G
+    from omni3d_tpu_torch.utils.render import render_depth_map
+
+    summary = {}
+    t_phase = time.perf_counter()
+    # (a) the decoder against the committed cv2 decodes
+    fixtures = sorted(glob.glob(os.path.join(JPEG_DIR, "*.jpg")))
+    decoded = 0
+    for path in fixtures:
+        if os.path.basename(path).startswith("progressive"):
+            try:
+                read_image_bgr(path)
+            except ValueError as e:
+                assert "progressive" in str(e), e
+                continue
+            raise AssertionError(f"{path}: a progressive file did not raise")
+        got, want = read_image_bgr(path), read_image_bgr(path[:-4] + ".png")
+        if got.shape != want.shape or not np.array_equal(got, want):
+            raise AssertionError(f"{path}: the decode differs from the committed cv2 decode")
+        decoded += 1
+    with open(os.path.join(JPEG_DIR, "q95_420_640x480.jpg"), "rb") as f:
+        data = f.read()
+    ms = []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        decode_jpeg(data)
+        ms.append((time.perf_counter() - t0) * 1e3)
+    summary["jpeg"] = dict(fixtures_bit_equal=decoded, decode_ms_640x480_q95=statistics.median(ms))
+    print(f"  JPEG: {decoded} fixtures bit-equal to their committed cv2 decodes, the progressive "
+          f"one refused; 640x480 q95 decode {statistics.median(ms):.2f} ms (median of 10)")
+    assert decoded == len(fixtures) - 1 >= 9, (decoded, len(fixtures))
+
+    # (b) the demo at full width, bf16, phase 6's checkpoint
+    folder, out_dir = os.path.join(tmp, "demo_in"), os.path.join(tmp, "demo_out")
+    os.makedirs(folder, exist_ok=True)
+    for name in DEMO_IMAGES:
+        shutil.copy(os.path.join(JPEG_DIR, name + ".jpg"), folder)
+    argv = ["--config-file", os.path.join(ROOT, "configs", "cubercnn_DLA34_FPN.yaml"),
+            "--input-folder", folder, "--weights", weights, "--threshold", "0.0",
+            "--output-dir", out_dir, "--device", device.type, "--display",
+            "TPU.COMPUTE_DTYPE", "bfloat16", "OUTPUT_DIR", os.path.join(tmp, "output")]
+    calls = []
+    real_infer = demo.infer
+
+    def infer(model, cfg, image_bgr, K):
+        det = real_infer(model, cfg, image_bgr, K)
+        calls.append((model, cfg, image_bgr, K, det))
+        return det
+    spy, seen = first_pooler_calls()
+    rcnn3d.multilevel_roi_align, demo.infer = spy, infer
+    multilevel_roi_align.launches = 0          # counts of the main path's run only
+    multilevel_roi_align.bwd_launches = 0
+    try:
+        t0 = time.perf_counter()
+        records = demo.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        rcnn3d.multilevel_roi_align, demo.infer = multilevel_roi_align, real_infer
+    launches = {"forward": multilevel_roi_align.launches,
+                "backward": multilevel_roi_align.bwd_launches}
+    print(f"  demo: kernel launches {launches} over {len(records)} images")
+    assert launches == {"forward": 2 * len(DEMO_IMAGES), "backward": 0}, launches
+    checks = pooler_vs_plain(seen, 1)
+    print(f"  demo: forward kernel vs plain pooler on the run's own inputs at {len(checks)} "
+          f"(pyramid, boxes) shapes: max|k-p| {max(c['max_abs_err'] for c in checks):.3e}")
+    det_errs = []
+    for (model, cfg, image_bgr, K, det), rec in zip(calls, records):
+        canvas, net_h, net_w = demo.network_input(cfg, image_bgr)
+        images = rcnn3d.preprocess(torch.from_numpy(canvas[None]).to(device),
+                                   cfg.MODEL.PIXEL_MEAN, cfg.MODEL.PIXEL_STD)
+        direct = rcnn3d.inference(
+            model, images, torch.from_numpy(K[None]).to(device),
+            torch.tensor([image_bgr.shape[0] / net_h], device=device),
+            hw=torch.tensor([[net_h, net_w]], dtype=torch.float32, device=device),
+            **rcnn3d.inference_kwargs(cfg))
+        direct = {k: v[0].float().cpu().numpy() for k, v in direct.items()}
+        assert np.array_equal(det["valid"], direct["valid"]) and np.array_equal(
+            det["classes"], direct["classes"]), rec["name"]
+        errs = {k: float(np.abs(det[k] - direct[k]).max())
+                for k in ("boxes", "scores", "center_cam", "dims", "pose")}
+        assert errs["scores"] <= 1e-4 and errs["boxes"] <= 1e-2, (rec["name"], errs)
+        assert np.isfinite(det["center_cam"][det["valid"] > 0]).all(), rec["name"]
+        det_errs.append(errs)
+        h, w = rec["height"], rec["width"]
+        for kind, shape in (("boxes", (h, w, 3)), ("novel", (512, 512, 3)),
+                            ("bev", (400, 400, 3))):
+            img = read_image_bgr(rec["files"][kind])
+            assert img.shape == shape, (rec["name"], kind, img.shape)
+        assert rec["detections"] > 0, rec
+        # the demo's inference time holds the first call at the image's
+        # shape; `demo.infer` again at that shape is the steady state
+        steady = []
+        for _ in range(DEMO_STEADY_CALLS):
+            t0 = time.perf_counter()
+            real_infer(model, cfg, image_bgr, K)
+            steady.append((time.perf_counter() - t0) * 1e3)
+        rec["ms"]["inference_steady"] = statistics.median(steady)
+        print(f"  demo {rec['name']} ({w}x{h}): {rec['detections']} detections drawn; "
+              + ", ".join(f"{k} {v:.1f} ms" for k, v in rec["ms"].items())
+              + f" (median of {DEMO_STEADY_CALLS} more calls at this shape); "
+              f"vs a direct inference call: {errs}")
+    del calls
+    torch.cuda.empty_cache()
+    summary["demo"] = dict(images=[dict(name=r["name"], hw=[r["height"], r["width"]],
+                                        detections=r["detections"], ms=r["ms"])
+                                   for r in records],
+                           wall_s=wall, launches=launches, pooler_vs_plain=checks,
+                           vs_direct_inference=det_errs)
+
+    # (c) the rasterizer on the card against the CPU
+    gen = np.random.default_rng(0)
+    c = np.stack([gen.uniform(-4, 4, RENDER_BOXES), gen.uniform(-1, 1.5, RENDER_BOXES),
+                  gen.uniform(3, 25, RENDER_BOXES)], 1)
+    d = gen.uniform(0.5, 3.0, (RENDER_BOXES, 3))
+    boxes = np.concatenate([c, d], 1).astype(np.float32)
+    R = G.euler_angles_to_matrix(torch.tensor(gen.uniform(-np.pi, np.pi, (RENDER_BOXES, 3)),
+                                              dtype=torch.float32)).numpy()
+    H, W = RENDER_HW
+    K = np.array([[500, 0, W / 2], [0, 500, H / 2], [0, 0, 1]], np.float32)
+    times, outs = ([], []), []
+    for j, dev in enumerate((device, torch.device("cpu"))):
+        for i in range(3):
+            t0 = time.perf_counter()
+            out = [t.cpu() for t in render_depth_map(K, boxes, R, W, H, device=dev)]
+            if i:
+                times[j].append((time.perf_counter() - t0) * 1e3)
+        outs.append(out)
+    (cs, cd, ci), (ps, pd, pi) = outs
+    fin = torch.isfinite(pd)
+    depth_rel = float(((cd[fin] - pd[fin]).abs() / pd[fin]).max())
+    assert torch.equal(cs, ps) and torch.equal(ci, pi), "render_depth_map: card != CPU"
+    assert torch.equal(torch.isfinite(cd), fin) and depth_rel <= 1e-5, depth_rel
+    card_ms, cpu_ms = statistics.median(times[0]), statistics.median(times[1])
+    summary["render_depth_map"] = dict(
+        boxes=RENDER_BOXES, hw=list(RENDER_HW), depth_max_rel=depth_rel,
+        covered_pixels=int(fin.sum()), card_ms=card_ms, cpu_ms=cpu_ms)
+    print(f"  render_depth_map, {RENDER_BOXES} boxes at {W}x{H}: silhouettes and indices equal "
+          f"on the card and the CPU, depth max rel {depth_rel:.1e} (tol 1e-5); "
+          f"{card_ms:.1f} ms on the card, {cpu_ms:.1f} ms on the CPU")
+
+    # (d) train_net with the training visualisation and evaluation
+    vis_out = os.path.join(tmp, "vis_run")
+    argv = train_argv(tmp, vis_out, VIS_STEPS, "--weights", weights) + [
+        "VIS_PERIOD", str(VIS_PERIOD), "TEST.EVAL_PERIOD", str(VIS_EVAL_PERIOD),
+        "DATASETS.TEST", str(tuple(EVAL_SPLITS)), "TPU.EVAL_BATCH_SIZE", "8"]
+    before = _launch_counts()
+    t0 = time.perf_counter()
+    run = train_net.main(argv)
+    torch.cuda.synchronize()
+    vis_wall = time.perf_counter() - t0
+    after = _launch_counts()
+    panels = sorted(os.listdir(os.path.join(vis_out, "vis")))
+    want = sorted(f"iter_{i + 1:07d}_gt_vs_pred_{k}.png" for i in range(1, VIS_STEPS)
+                  if i % VIS_PERIOD == 0 for k in ("2d", "3d"))
+    assert run.iterations == list(range(VIS_STEPS)), run.iterations
+    assert panels == want, (panels, want)
+    for f in panels:
+        img = read_image_bgr(os.path.join(vis_out, "vis", f))
+        assert img.ndim == 3 and img.shape[1] % 2 == 0, (f, img.shape)
+    eval_dir = os.path.join(vis_out, "inference", f"iter_{VIS_EVAL_PERIOD - 1}")
+    dumps, forced = {}, {}
+    cfg = run.model.cfg
+    fs = data_lib.get_filter_settings_from_cfg(cfg)
+    for name in EVAL_SPLITS:
+        vis_dir = os.path.join(eval_dir, name, "vis")
+        dumps[name] = sorted(os.listdir(vis_dir)) if os.path.isdir(vis_dir) else []
+        preds = Omni3DEvaluationHelper.load_predictions(
+            os.path.join(eval_dir, name, "instances_predictions.pkl"))
+        api = data_lib.Omni3D([data_lib.metadata(name)["json_file"]], dict(fs))
+        n = visualize_from_predictions(preds, api, os.path.join(tmp, "forced_vis", name),
+                                       [str(i) for i in range(50)], score_thresh=0.0,
+                                       datasets_root=data_lib.metadata(name)["image_root"])
+        sampled = [img["id"] for i, img in enumerate(api.dataset["images"]) if i % 50 == 0]
+        want_n = sum(any(p["image_id"] == i for p in preds) for i in sampled)
+        assert n == want_n, (name, n, want_n)
+        for f in os.listdir(os.path.join(tmp, "forced_vis", name, "vis")) if n else []:
+            img = read_image_bgr(os.path.join(tmp, "forced_vis", name, "vis", f))
+            assert img.shape[:2] == EVAL_SPLITS[name][1:3], (name, f, img.shape)
+        forced[name] = n
+    summary["train_vis"] = dict(steps=VIS_STEPS, vis_period=VIS_PERIOD, panels=panels,
+                                eval_period=VIS_EVAL_PERIOD, eval_dumps=dumps,
+                                dumps_at_score_0=forced, wall_s=vis_wall,
+                                launches={"forward": after[0] - before[0],
+                                          "backward": after[1] - before[1]})
+    print(f"  train_net {VIS_STEPS} iterations, VIS_PERIOD {VIS_PERIOD}, TEST.EVAL_PERIOD "
+          f"{VIS_EVAL_PERIOD}: panels {panels}; evaluation sample dumps {dumps} (at score "
+          f"threshold 0: {forced}); wall {vis_wall:.1f} s")
+    summary["phase_wall_s"] = time.perf_counter() - t_phase
+    print(f"  phase 10 wall {summary['phase_wall_s']:.1f} s")
+    return summary, launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1734,40 +2227,48 @@ def main():
           f"{torch.cuda.get_device_name(0)}; TF32 off (cuDNN and matmul)")
 
     from omni3d_tpu_torch.ops import roi_align_cuda
-    print("[1/9] build")
+    print("[1/10] build")
     path, secs, log = roi_align_cuda.build()
     print(f"  {os.path.relpath(path, ROOT)} built in {secs:.1f} s")
     for line in log.splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print("  ptxas:", line.strip()[:160])
+    if sys.argv[1:2] == ["--gate-probe"]:
+        print(f"phase 5's old gate state, {sys.argv[2]} replays")
+        gate_probe(device, int(sys.argv[2]))
+        return
 
-    print("[2/9] forward kernel vs plain PyTorch version")
+    print("[2/10] forward kernel vs plain PyTorch version")
     main_case, worst = kernel_vs_plain(device)
 
-    print("[3/9] inference main path: DLA34-FPN inference at 512 px")
+    print("[3/10] inference main path: DLA34-FPN inference at 512 px")
     timings, launches, _ = main_path(device)
 
-    print("[4/9] backward kernel vs plain PyTorch version")
+    print("[4/10] backward kernel vs plain PyTorch version")
     worst_bwd = bwd_vs_plain(device)
     at_train = time_kernels_at_train_shape(device)
 
-    print("[5/9] training main path: DLA34-FPN training steps at 512 px")
+    print("[5/10] training main path: DLA34-FPN training steps at 512 px")
     train_rows, train_launches, plain_cmp = train_path(device)
 
     with tempfile.TemporaryDirectory() as tmp:
-        print("[6/9] training entry point: tools.train_net on a synthetic Omni3D-format dataset")
+        print("[6/10] training entry point: tools.train_net on a synthetic Omni3D-format dataset")
         entry, entry_launches, weights = entry_point_path(device, tmp)
 
-        print("[7/9] evaluation: tools.train_net --eval-only on synthetic test splits")
+        print("[7/10] evaluation: tools.train_net --eval-only on synthetic test splits")
         evaluation, eval_launches = evaluation_path(device, tmp, weights)
 
-        print("[8/9] data parallelism: DDP over NCCL at world size 1, two ranks on the card "
+        print("[8/10] data parallelism: DDP over NCCL at world size 1, two ranks on the card "
               "over gloo, --eval-only at world size 2")
         distributed, ddp_launches = distributed_path(device, tmp, weights)
 
-        print("[9/9] other backbones at full width: ResNet34-FPN as phases 3 and 5-7 drive "
+        print("[9/10] other backbones at full width: ResNet34-FPN as phases 3 and 5-7 drive "
               "DLA-34, then every other builder and DLA variant")
         backbones, bb_launches = backbones_path(device, tmp, timings, train_rows)
+
+        print("[10/10] the demo: JPEG fixtures, tools.demo at full width, render_depth_map on "
+              "the card, train_net with VIS_PERIOD and TEST.EVAL_PERIOD")
+        demo, demo_launches = demo_path(device, tmp, weights)
 
     bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "omni3d_tpu")]
     assert not bad, bad
@@ -1777,6 +2278,7 @@ def main():
     print("evaluation: " + json.dumps(evaluation))
     print("distributed: " + json.dumps(distributed))
     print("backbones: " + json.dumps(backbones))
+    print("demo: " + json.dumps(demo))
     # phase 9's kernel-vs-plain checks on ResNet-34's own pooler inputs (its
     # random-weight maps are larger than DLA-34's, so are the absolute errors)
     bb_pooler = backbones["resnet34"]["training"]["first_pooler_call_vs_plain"]
@@ -1790,14 +2292,16 @@ def main():
         "also_replaces": "omni3d_tpu/ops/roi_align_pallas.py:469",
         "launches": (launches + train_launches["forward"] + entry_launches["forward"]
                      + eval_launches["forward"] + ddp_launches["forward"]
-                     + bb_launches["forward"]),
+                     + bb_launches["forward"] + demo_launches["forward"]),
         "launches_by_path": {"inference": launches, "training": train_launches["forward"],
                              "training_entry_point": entry_launches["forward"],
                              "evaluation": eval_launches["forward"],
                              "distributed": ddp_launches["forward"],
-                             "backbones": bb_launches["forward"]},
+                             "backbones": bb_launches["forward"],
+                             "demo": demo_launches["forward"]},
         "max_abs_err": max(worst, at_train["fwd_max_abs_err"],
                            evaluation["roi_align_fwd_max_abs_err"],
+                           max(c["max_abs_err"] for c in demo["demo"]["pooler_vs_plain"]),
                            distributed["two_ranks_one_card_gloo"]["fwd_max_abs_err"],
                            bb_fwd_err),
         "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
@@ -1821,7 +2325,8 @@ def main():
                              "training_entry_point": entry_launches["backward"],
                              "evaluation": eval_launches["backward"],
                              "distributed": ddp_launches["backward"],
-                             "backbones": bb_launches["backward"]},
+                             "backbones": bb_launches["backward"],
+                             "demo": demo_launches["backward"]},
         "max_abs_err": max(worst_bwd, at_train["bwd_max_abs_err"],
                            distributed["two_ranks_one_card_gloo"]["bwd_max_abs_err"],
                            bb_pooler["bwd_max_abs_err"]),

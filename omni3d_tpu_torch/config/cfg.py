@@ -2,15 +2,16 @@
 
 Same `CfgNode` / `StaticCfg` surface as `omni3d_tpu.config.cfg`: attribute
 access, YAML files with `_BASE_` inheritance, `merge_from_list` for CLI
-`KEY VALUE` overrides, and freezing. YAML is read by `read_yaml`, a small
-reader of the subset the repo's `configs/*.yaml` use, so the port does not
+`KEY VALUE` overrides, freezing, and `dump` / `save`. YAML is read by
+`read_yaml`, a small reader of the subset the repo's `configs/*.yaml` and
+`dump` use, and written by `dump_yaml`, which gives the bytes of PyYAML's
+`safe_dump(..., sort_keys=True)` for config trees, so the port does not
 depend on PyYAML.
 """
 from __future__ import annotations
 
 import ast
 import copy
-import json
 import os
 import re
 from typing import Any
@@ -102,6 +103,17 @@ class CfgNode(dict):
                 raise KeyError(f"Non-existent config key: {key}")
             node[leaf] = _coerce(_parse_value(value), node.get(leaf))
 
+    # ------------------------------ io ------------------------------
+    def dump(self) -> str:
+        """The config as YAML, byte-equal to the JAX package's
+        `yaml.safe_dump(..., sort_keys=True)` (tuples as lists)."""
+        return dump_yaml(_to_plain(self))
+
+    def save(self, path: str):
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        with open(path, "w") as f:
+            f.write(self.dump())
+
 
 class StaticCfg:
     """Hashable, immutable attribute view of a CfgNode."""
@@ -145,6 +157,14 @@ def _freeze_key(node):
         return tuple((k, _freeze_key(v)) for k, v in sorted(node.items()))
     if isinstance(node, (list, tuple)):
         return tuple(_freeze_key(v) for v in node)
+    return node
+
+
+def _to_plain(node):
+    if isinstance(node, dict):
+        return {k: _to_plain(v) for k, v in node.items()}
+    if isinstance(node, (list, tuple)):
+        return [_to_plain(v) for v in node]
     return node
 
 
@@ -241,9 +261,32 @@ def _quoted(s: str, i: int):
             j += 2
             continue
         if q == '"' and s[j] == '"':
-            return json.loads(s[i:j + 1]), j + 1
+            return _unescape_double(s[i + 1:j]), j + 1
         j += 1
     raise ValueError(f"unterminated quoted scalar: {s!r}")
+
+
+def _unescape_double(body: str) -> str:
+    """The characters of a double-quoted scalar's body (YAML escapes)."""
+    out, i = [], 0
+    unescape = {v: k for k, v in _ESCAPES.items()} | {"/": "/", " ": " "}
+    while i < len(body):
+        ch = body[i]
+        if ch != "\\":
+            out.append(ch)
+            i += 1
+            continue
+        e = body[i + 1]
+        width = {"x": 2, "u": 4, "U": 8}.get(e)
+        if width:
+            out.append(chr(int(body[i + 2:i + 2 + width], 16)))
+            i += 2 + width
+        elif e in unescape:
+            out.append(unescape[e])
+            i += 2
+        else:
+            raise ValueError(f"unknown escape in a double-quoted scalar: {body!r}")
+    return "".join(out)
 
 
 def _flow_list(s: str, i: int):
@@ -278,6 +321,8 @@ def _value(s: str):
         val, end = _flow_list(s, 0)
     elif s[0] in "'\"":
         val, end = _quoted(s, 0)
+    elif s == "{}":
+        return {}
     elif s[0] in "{&*!|>%@`":
         raise ValueError(f"YAML construct not supported by this reader: {s!r}")
     else:
@@ -300,48 +345,205 @@ def _strip_comment(line: str) -> str:
     return line
 
 
+def _is_seq_line(body: str) -> bool:
+    return body == "-" or body.startswith("- ")
+
+
+def _map_line(body: str):
+    """(key, rest) of a 'key: value' line, or None where the line is not one."""
+    if body[0] in "'\"":
+        key, end = _quoted(body, 0)
+        rest = body[end:].lstrip()
+        return (key, rest[1:].strip()) if rest.startswith(":") else None
+    m = re.match(r"([^:]+?)\s*:(?:\s|$)", body + " ")
+    return (m.group(1), body[m.end():].strip()) if m else None
+
+
+def _block(lines: list, i: int):
+    """The node whose first line is lines[i] -> (value, next line)."""
+    indent, body = lines[i]
+    if _is_seq_line(body):
+        return _block_seq(lines, i, indent)
+    if _map_line(body) is not None:
+        return _block_map(lines, i, indent)
+    return _value(body), i + 1
+
+
+def _block_seq(lines: list, i: int, indent: int):
+    out = []
+    while i < len(lines) and lines[i][0] == indent and _is_seq_line(lines[i][1]):
+        after = lines[i][1][1:]
+        rest = after.lstrip()
+        if rest:   # the item starts on this line, at the column after "- "
+            lines[i] = (indent + 1 + len(after) - len(rest), rest)
+            val, i = _block(lines, i)
+        elif i + 1 < len(lines) and lines[i + 1][0] > indent:
+            val, i = _block(lines, i + 1)
+        else:
+            val, i = None, i + 1
+        out.append(val)
+    return out, i
+
+
+def _block_map(lines: list, i: int, indent: int):
+    out: dict = {}
+    while i < len(lines) and lines[i][0] == indent and not _is_seq_line(lines[i][1]):
+        kv = _map_line(lines[i][1])
+        if kv is None:
+            raise ValueError(f"expected 'key: value': {lines[i][1]!r}")
+        key, rest = kv
+        i += 1
+        if rest:
+            out[key] = _value(rest)
+        elif i < len(lines) and (lines[i][0] > indent
+                                 or (lines[i][0] == indent and _is_seq_line(lines[i][1]))):
+            out[key], i = _block(lines, i)
+        else:
+            out[key] = None
+    if i < len(lines) and lines[i][0] > indent:
+        raise ValueError(f"bad indentation: {lines[i][1]!r}")
+    return out, i
+
+
 def read_yaml(text: str) -> dict:
-    """Read the YAML subset of the repo's configs: nested block mappings
-    (indentation by spaces), plain and quoted scalars, and flow sequences.
-    A key with no value and no indented block under it is null."""
-    root: dict = {}
-    # frames: (indent, mapping, parent mapping, key in parent)
-    stack = [(-1, root, None, None)]
-
-    def pop():
-        _, node, parent, key = stack.pop()
-        if parent is not None and not node:
-            parent[key] = None
-
+    """Read the YAML subset of the repo's configs and of `dump_yaml`: block
+    mappings and block sequences (indentation by spaces; sequences under a
+    key may sit at the key's column), plain and quoted scalars, flow
+    sequences and `{}`. A key with no value and no block under it is null."""
+    lines = []
     for raw in text.splitlines():
         line = _strip_comment(raw).rstrip()
-        if not line.strip():
-            continue
-        if line.lstrip().startswith("- ") or line.strip() == "-":
-            raise ValueError(f"block sequences are not supported: {raw!r}")
-        indent = len(line) - len(line.lstrip(" "))
-        body = line.strip()
-        if body[0] in "'\"":
-            key, end = _quoted(body, 0)
-            rest = body[end:].lstrip()
-            if not rest.startswith(":"):
-                raise ValueError(f"expected 'key: value': {raw!r}")
-            rest = rest[1:]
-        else:
-            m = re.match(r"([^:]+?)\s*:(?:\s|$)", body + " ")
-            if not m:
-                raise ValueError(f"expected 'key: value': {raw!r}")
-            key, rest = m.group(1), body[m.end():]
-        while indent <= stack[-1][0]:
-            pop()
-        parent = stack[-1][1]
-        rest = rest.strip()
-        if rest:
-            parent[key] = _value(rest)
-        else:
-            child: dict = {}
-            parent[key] = child
-            stack.append((indent, child, parent, key))
-    while len(stack) > 1:
-        pop()
+        if line.strip():
+            lines.append((len(line) - len(line.lstrip(" ")), line.strip()))
+    if not lines:
+        return {}
+    root, i = _block(lines, 0)
+    if i != len(lines):
+        raise ValueError(f"bad indentation: {lines[i][1]!r}")
     return root
+
+
+# ------------------------------ YAML writer ------------------------------
+# The scalar styles and block layout of PyYAML's emitter (safe_dump with its
+# defaults): a string is plain unless it is empty, would read back as another
+# type, or holds an indicator; then single-quoted; double-quoted where it has
+# characters a single-quoted scalar cannot hold.
+_RESOLVES = [re.compile(p, re.X) for p in (
+    r"""^(?:yes|Yes|YES|no|No|NO|true|True|TRUE|false|False|FALSE|on|On|ON|off|Off|OFF)$""",
+    r"""^(?:[-+]?(?:[0-9][0-9_]*)\.[0-9_]*(?:[eE][-+][0-9]+)?
+        |\.[0-9][0-9_]*(?:[eE][-+][0-9]+)?
+        |[-+]?[0-9][0-9_]*(?::[0-5]?[0-9])+\.[0-9_]*
+        |[-+]?\.(?:inf|Inf|INF)
+        |\.(?:nan|NaN|NAN))$""",
+    r"""^(?:[-+]?0b[0-1_]+
+        |[-+]?0[0-7_]+
+        |[-+]?(?:0|[1-9][0-9_]*)
+        |[-+]?0x[0-9a-fA-F_]+
+        |[-+]?[1-9][0-9_]*(?::[0-5]?[0-9])+)$""",
+    r"""^(?:<<)$""",
+    r"""^(?:~|null|Null|NULL|)$""",
+    r"""^(?:[0-9][0-9][0-9][0-9]-[0-9][0-9]-[0-9][0-9]
+        |[0-9][0-9][0-9][0-9]-[0-9][0-9]?-[0-9][0-9]?
+         (?:[Tt]|[ \t]+)[0-9][0-9]?:[0-9][0-9]:[0-9][0-9](?:\.[0-9]*)?
+         (?:[ \t]*(?:Z|[-+][0-9][0-9]?(?::[0-9][0-9])?))?)$""",
+    r"""^(?:=)$""",
+)]
+
+
+def _plain_ok(s: str) -> bool:
+    if not s or s.startswith(("---", "...")) or s[0] in " \t" or s[-1] in " \t":
+        return False
+    if any(p.match(s) for p in _RESOLVES):
+        return False
+    for i, ch in enumerate(s):
+        followed_by_space = i + 1 == len(s) or s[i + 1] in " \t"
+        if not (" " <= ch <= "~"):
+            return False
+        if i == 0:
+            if ch in "#,[]{}&*!|>'\"%@`" or (ch in "?:-" and followed_by_space):
+                return False
+        elif (ch == ":" and followed_by_space) or (ch == "#" and s[i - 1] in " \t"):
+            return False
+    return True
+
+
+def _scalar(v) -> str:
+    if v is None:
+        return "null"
+    if isinstance(v, bool):
+        return "true" if v else "false"
+    if isinstance(v, int):
+        return str(v)
+    if isinstance(v, float):
+        if v != v:
+            return ".nan"
+        if v in (float("inf"), float("-inf")):
+            return ".inf" if v > 0 else "-.inf"
+        r = repr(v).lower()
+        return r.replace("e", ".0e", 1) if "." not in r and "e" in r else r
+    if not isinstance(v, str):
+        raise TypeError(f"dump_yaml: cannot write a {type(v).__name__}")
+    if _plain_ok(v):
+        return v
+    if all(" " <= ch <= "~" for ch in v):
+        return "'" + v.replace("'", "''") + "'"
+    return '"' + "".join(_double_quoted_char(ch) for ch in v) + '"'
+
+
+_ESCAPES = {"\0": "0", "\x07": "a", "\x08": "b", "\t": "t", "\n": "n", "\x0b": "v",
+            "\x0c": "f", "\r": "r", "\x1b": "e", '"': '"', "\\": "\\", "\x85": "N",
+            "\xa0": "_", "\u2028": "L", "\u2029": "P"}
+
+
+def _double_quoted_char(ch: str) -> str:
+    if ch in _ESCAPES:
+        return "\\" + _ESCAPES[ch]
+    if " " <= ch <= "~":
+        return ch
+    n = ord(ch)
+    return "\\x%02X" % n if n < 0x100 else ("\\u%04X" % n if n < 0x10000 else "\\U%08X" % n)
+
+
+def _dump_map(d: dict, indent: int) -> list:
+    out = []
+    for k in sorted(d):
+        v, key = d[k], " " * indent + _scalar(k) + ":"
+        if isinstance(v, dict) and v:
+            out += [key] + _dump_map(v, indent + 2)
+        elif isinstance(v, list) and v:
+            out += [key] + _dump_seq(v, indent)
+        else:
+            out.append(f"{key} {_dump_flow(v)}")
+    return out
+
+
+def _dump_seq(seq: list, indent: int) -> list:
+    out = []
+    for v in seq:
+        if isinstance(v, (dict, list)) and v:
+            sub = _dump_map(v, indent + 2) if isinstance(v, dict) else _dump_seq(v, indent + 2)
+            out += [" " * indent + "- " + sub[0][indent + 2:]] + sub[1:]
+        else:
+            out.append(" " * indent + "- " + _dump_flow(v))
+    return out
+
+
+def _dump_flow(v) -> str:
+    if isinstance(v, dict):
+        return "{}"
+    if isinstance(v, list):
+        return "[]"
+    return _scalar(v)
+
+
+def dump_yaml(tree) -> str:
+    """A tree of dicts, lists and scalars as block YAML, as PyYAML's
+    `safe_dump(tree, sort_keys=True)` writes it (strings of up to a line;
+    PyYAML folds longer plain ones)."""
+    if isinstance(tree, dict) and tree:
+        lines = _dump_map(tree, 0)
+    elif isinstance(tree, list) and tree:
+        lines = _dump_seq(tree, 0)
+    else:
+        return _dump_flow(tree) + "\n" + ("" if isinstance(tree, (dict, list)) else "...\n")
+    return "\n".join(lines) + "\n"

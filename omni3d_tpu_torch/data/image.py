@@ -4,11 +4,12 @@ The card's machine has neither `cv2` nor `PIL`, so the port reads images
 and resizes them itself, in numpy and the standard library:
 
   * `read_image_bgr` returns BGR uint8 (H, W, 3), as `cv2.imread(path,
-    IMREAD_COLOR)` does. It decodes binary PPM (P6, maxval 255) and 8-bit
-    non-interlaced PNG (grey, RGB, palette, grey+alpha, RGBA; alpha is
-    dropped, as OpenCV drops it) with `zlib` and the five PNG row filters.
-    JPEG goes through PIL where PIL imports; otherwise the error names the
-    file and the missing decoder.
+    IMREAD_COLOR)` does, bit for bit. It decodes binary PPM (P6, maxval
+    255), 8-bit non-interlaced PNG (grey, RGB, palette, grey+alpha, RGBA;
+    alpha is dropped, as OpenCV drops it) with `zlib` and the five PNG row
+    filters, and baseline / extended-sequential Huffman-coded JPEG with the
+    port's own decoder (`data.jpeg`, EXIF orientation applied). Anything
+    else, progressive JPEG included, raises `ValueError` naming the file.
   * `resize_bilinear_uint8` is PIL's `Image.resize(..., BILINEAR)` on uint8
     images (the resize detectron2's ResizeTransform applies), bit for bit:
     PIL's `ImagingResample` with its coefficients normalised in double,
@@ -24,6 +25,8 @@ import zlib
 
 import numpy as np
 
+from .jpeg import decode_jpeg
+
 _PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _PNG_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}     # colour type -> samples per pixel
 PRECISION_BITS = 32 - 8 - 2                         # PIL Resample.c
@@ -32,28 +35,17 @@ PRECISION_BITS = 32 - 8 - 2                         # PIL Resample.c
 # ------------------------------ reading ------------------------------
 
 def read_image_bgr(path: str) -> np.ndarray:
-    """(H, W, 3) BGR uint8 image of a PPM, PNG or (through PIL) JPEG file."""
+    """(H, W, 3) BGR uint8 image of a PPM, PNG or JPEG file."""
     with open(path, "rb") as f:
         data = f.read()
     if data[:8] == _PNG_SIGNATURE:
         return decode_png(data, path)
     if data[:2] == b"P6":
         return decode_ppm(data, path)
-    if data[:3] == b"\xff\xd8\xff":
-        return _read_jpeg_pil(path)
+    if data[:2] == b"\xff\xd8":
+        return decode_jpeg(data, path)
     raise ValueError(f"{path}: unknown image format (read: binary PPM, 8-bit PNG, "
-                     "and JPEG where PIL imports)")
-
-
-def _read_jpeg_pil(path: str) -> np.ndarray:
-    try:
-        from PIL import Image
-    except ImportError:
-        raise RuntimeError(f"{path}: JPEG needs PIL, which does not import here; "
-                           "convert the images to PNG or PPM") from None
-    with Image.open(path) as im:
-        rgb = np.asarray(im.convert("RGB"))
-    return np.ascontiguousarray(rgb[..., ::-1])
+                     "baseline JPEG)")
 
 
 def decode_ppm(data: bytes, path: str = "<ppm>") -> np.ndarray:

@@ -16,7 +16,9 @@ and the log line (medians over the last 20 iterations), and the
 stabilizer's exploded-iteration budget is checked; when it is spent the
 attempt fails and `train_with_retries` restarts from `model_recent`. Every
 TEST.EVAL_PERIOD iterations `eval_fn` evaluates the training model in eval
-mode, and its modes come back unchanged.
+mode, and its modes come back unchanged. Every VIS_PERIOD iterations rank 0
+runs the training model in eval mode on the batch's first image and writes
+GT-vs-prediction panels (`visualize_training`) under <output_dir>/vis/.
 
 Under a process group (one process per GPU, `parallel.init_distributed`)
 each rank loads IMS_PER_BATCH / world images per step and the step runs
@@ -28,7 +30,9 @@ Evaluation (port of the JAX package's `run_inference_dataset` and
 `do_test`; the reference's do_test, tools/train_net.py:56-114): inference
 over each DATASETS.TEST split on the model's device, TPU.EVAL_BATCH_SIZE
 images per batch, then the Omni3D AP2D / AP3D tables with IoU3D on the same
-device, files under <OUTPUT_DIR>/inference/iter_<N>/. Under a process group
+device, files under <OUTPUT_DIR>/inference/iter_<N>/, and every 50th image
+of a split that is on disk drawn with its confident detections
+(<dataset>/vis/). Under a process group
 each rank runs inference on its shard of each split, every rank gathers
 all predictions and evaluates them, and rank 0 writes the files and prints.
 """
@@ -46,7 +50,8 @@ import torch
 from ..data import datasets as data_lib
 from ..data.build import build_detection_test_loader, build_detection_train_loader
 from ..data.mapper import batch_to_device
-from ..evaluation.error_stats import compute_error_stats, error_log_string
+from ..evaluation.error_stats import (compute_error_stats, error_log_string,
+                                     visualize_from_predictions)
 from ..evaluation.omni3d_eval import Omni3DEvaluationHelper, instances_to_predictions
 from ..models.rcnn3d import build_model, inference, inference_kwargs
 from ..parallel import dist as dist_lib
@@ -55,6 +60,7 @@ from ..utils import checkpoint as ckpt
 from ..utils.events import EventStorage
 from ..utils.priors import load_priors_
 from ..vis.logperf import print_per_category_table
+from ..vis.vis import visualize_training_sample
 from .train import make_train_step
 
 LOG_PERIOD = 20    # host<->device sync cadence of the logs (loss fetch + retry check)
@@ -162,6 +168,42 @@ class _StepProfile:
         return summary
 
 
+def thing_classes(cfg) -> list:
+    """The model's category names, or their indices where no metadata is
+    registered."""
+    try:
+        return data_lib.metadata("omni3d_model")["thing_classes"]
+    except KeyError:
+        return [str(i) for i in range(cfg.MODEL.ROI_HEADS.NUM_CLASSES)]
+
+
+def build_eval_model(cfg, device="cuda", seed: int | None = None):
+    """The eval-mode inference model of `cfg` on `device` (TPU.COMPUTE_DTYPE;
+    seeded random weights with `seed`, else load a state dict), as the JAX
+    package's `build_eval_model`."""
+    return build_model(cfg, device=device, seed=seed, train=False)
+
+
+def visualize_training(cfg, model, batch, storage) -> dict:
+    """GT-vs-prediction panels of the first image of the device `batch`
+    (reference meta_arch/rcnn3d.py:70-72,114-245): an eval-mode inference
+    of the training model (its modes come back unchanged), then
+    `vis.visualize_training_sample`; written as `gt_vs_pred_2d` and
+    `gt_vs_pred_3d` through `storage.put_image`. Returns the panels."""
+    with eval_mode(model):
+        out = inference(model, batch["images"][0:1], batch["Ks"][0:1], batch["ratios"][0:1],
+                        hw=batch["hw"][0:1], **inference_kwargs(cfg))
+    det = {k: v[0] for k, v in _to_host(out).items()}
+    det["boxes"] = out["boxes"][0].float().cpu().numpy()
+    host = {k: v[0:1].detach().float().cpu().numpy() for k, v in batch.items()
+            if torch.is_tensor(v)}
+    panels = visualize_training_sample(host, det, cfg.MODEL.PIXEL_MEAN, cfg.MODEL.PIXEL_STD,
+                                       thing_classes(cfg))
+    storage.put_image("gt_vs_pred_2d", panels["2d"])
+    storage.put_image("gt_vs_pred_3d", panels["3d"])
+    return panels
+
+
 # the outputs of `inference` that become predictions
 _PREDICTION_KEYS = ("boxes_orig", "classes", "scores", "valid", "center_cam", "dims", "pose",
                     "corners", "center_2D")
@@ -239,7 +281,7 @@ def run_inference_dataset(cfg, model, dataset_name, id_map):
     return predictions, dict(images=done, data_s=t_data, compute_s=t_compute, batches=batches)
 
 
-def do_test(cfg, model, output_dir=None, iteration="final"):
+def do_test(cfg, model, output_dir=None, iteration="final", datasets_root=None):
     """Evaluate `model` (in eval mode) on every cfg.DATASETS.TEST dataset
     (reference do_test, tools/train_net.py:56-114); IoU3D runs on the
     model's device.
@@ -247,8 +289,11 @@ def do_test(cfg, model, output_dir=None, iteration="final"):
     Predictions and results land under <output_dir>/inference/iter_<N>/
     (<dataset>/instances_predictions.pkl and omni3d_results.json). After
     each dataset the per-instance error stats (xy/z/whl/ry vs the matched
-    GT) are printed. Returns {dataset: AP dict with its "error_stats" and
-    its "inference" timing, "summary": summarize_all()}.
+    GT) are printed, and every 50th image drawn with its confident
+    detections goes to <dataset>/vis/ (`visualize_from_predictions`; image
+    paths relative to `datasets_root`, by default the directory the
+    dataset's records were read from). Returns {dataset: AP dict with its
+    "error_stats" and its "inference" timing, "summary": summarize_all()}.
 
     Under a process group every rank evaluates the gathered predictions
     (the same AP dicts on every rank); rank 0 alone writes the files, prints
@@ -263,9 +308,7 @@ def do_test(cfg, model, output_dir=None, iteration="final"):
     helper = Omni3DEvaluationHelper(list(cfg.DATASETS.TEST), filter_settings, inference_dir,
                                     device=device)
     n_cats = max(len(id_map), 1)
-    if inference_dir is not None and main:
-        print("[eval] sample images with drawn detections wait for ROADMAP item 12 (vis); "
-              "none are written")
+    names = thing_classes(cfg)
     results = {}
     start = time.perf_counter()
     for name in cfg.DATASETS.TEST:
@@ -293,6 +336,15 @@ def do_test(cfg, model, output_dir=None, iteration="final"):
                                         Ks=Ks)
             print("[eval] " + error_log_string(name, stats, iteration))
             results[name]["error_stats"] = stats
+            if inference_dir is not None:
+                root = (datasets_root if datasets_root is not None
+                        else data_lib.metadata(name).get("image_root", ""))
+                n_vis = visualize_from_predictions(preds, gt_api,
+                                                   os.path.join(inference_dir, name), names,
+                                                   datasets_root=root)
+                if n_vis:
+                    print(f"[eval] wrote {n_vis} vis samples -> "
+                          f"{os.path.join(inference_dir, name, 'vis')}")
         results[name]["inference"] = timing
     results["summary"] = helper.summarize_all()
     if inference_dir is not None and main:
@@ -356,8 +408,9 @@ def do_train(cfg, output_dir: str, resume: bool = False, max_steps: int | None =
       NOT resuming (MODEL.WEIGHTS_PRETRAIN, MODEL.WEIGHTS or ImageNet).
     eval_fn: (model, iteration) -> None, called after every TEST.EVAL_PERIOD
       iterations with the training model in eval mode (`eval_mode`).
-    The training visualisation waits for ROADMAP item 12: with VIS_PERIOD
-    set, one line says so.
+    With VIS_PERIOD > 0, rank 0 writes `visualize_training`'s panels after
+    every VIS_PERIOD-th iteration (not iteration 0); a failure there is
+    printed and training goes on.
     Under a process group every rank calls this with its own device; the
     ranks load the same initial weights or checkpoint.
     """
@@ -386,10 +439,6 @@ def do_train(cfg, output_dir: str, resume: bool = False, max_steps: int | None =
     elif init_variables_fn is not None:
         init_variables_fn(model)
     start_iter, step = run.start_iter, run.step
-
-    if cfg.VIS_PERIOD > 0 and main:
-        print(f"[train] VIS_PERIOD={cfg.VIS_PERIOD}: training visualisation waits for "
-              "ROADMAP item 12; no images are written")
 
     loader = build_detection_train_loader(cfg, records=records, seed=seed,
                                           skip_batches=start_iter, process_index=rank,
@@ -442,6 +491,11 @@ def do_train(cfg, output_dir: str, resume: bool = False, max_steps: int | None =
                               f"iterations; restarting from checkpoint")
                     return False, run
             storage.step()
+            if main and cfg.VIS_PERIOD > 0 and iteration > 0 and iteration % cfg.VIS_PERIOD == 0:
+                try:
+                    visualize_training(cfg, model, batch, storage)
+                except Exception as e:  # vis must never kill a training run
+                    print(f"[train] visualization failed: {e!r}")
             if main:
                 checkpointer.step(iteration, lambda: train_state(run), {"iteration": iteration})
             if (eval_fn is not None and cfg.TEST.EVAL_PERIOD > 0

@@ -3,14 +3,18 @@
 logging, cubercnn/vis/vis.py:76-196 visualize_from_instances, called from
 tools/train_net.py:102-107): match confident predictions to GTs by 2D IoU
 and report mean absolute errors of the 3D variables (projected 2D center,
-depth, per-axis dimensions, rotation angle). The sample image dumps of the
-same reference function wait for ROADMAP item 12 (vis).
+depth, per-axis dimensions, rotation angle); `visualize_from_predictions`
+writes the same reference function's sample images (PNG, where the JAX
+package writes JPEG).
 """
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
 
+from ..data.image import read_image_bgr, write_png
 from ..utils.boxes import iou_np
 from ..utils.geometry import so3_relative_angle
 
@@ -87,3 +91,56 @@ def error_log_string(dataset_name: str, stats: dict, iteration="final") -> str:
                 stats["mean_xy_error"], stats["mean_z_error"],
                 stats["mean_w_error"], stats["mean_h_error"],
                 stats["mean_l_error"], ry_rad))
+
+
+def visualize_from_predictions(predictions: list, gt_api, output_folder: str,
+                               thing_classes: list, datasets_root: str = "",
+                               every: int = 50, score_thresh: float | None = None,
+                               max_images: int = 20) -> int:
+    """Write every `every`-th image of `gt_api` with its confident
+    detections drawn (3D wireframe, 2D box and label) as
+    <output_folder>/vis/<image index:06d>.png (reference
+    visualize_from_instances sample dumps, vis.py:96-98,170-181: one sample
+    per 50 images, detections above sqrt(1/n_cats), on the ORIGINAL image).
+    Image paths are relative to `datasets_root`; images missing on disk are
+    skipped. Returns the number of images written."""
+    from ..vis.vis import draw_2d_box, draw_3d_box, get_color
+
+    if score_thresh is None:
+        score_thresh = float(np.sqrt(1.0 / max(len(thing_classes), 1)))
+    by_img: dict = {}
+    for p in predictions:
+        by_img.setdefault(p["image_id"], []).append(p)
+    cat_name = {c["id"]: c["name"] for c in gt_api.dataset.get("categories", [])}
+
+    vis_folder = os.path.join(output_folder, "vis")
+    written = 0
+    for imind, img in enumerate(gt_api.dataset.get("images", [])):
+        if imind % every or written >= max_images:
+            continue
+        path = img.get("file_path") or img.get("file_name") or ""
+        if datasets_root and not os.path.isabs(path):
+            path = os.path.join(datasets_root, path)
+        if not os.path.isfile(path):
+            continue
+        im = read_image_bgr(path)
+        K = np.asarray(img["K"], np.float64)
+        thickness = max(int(round(3 * im.shape[0] / 500)), 1)
+        drew = False
+        for p in by_img.get(img["id"], []):
+            if p["score"] < score_thresh:
+                continue
+            color = get_color(int(p["category_id"]))
+            c, d = p["center_cam"], p["dimensions"]
+            draw_3d_box(im, K, [c[0], c[1], c[2], d[0], d[1], d[2]],
+                        np.asarray(p["pose"], np.float64), color=color, thickness=thickness)
+            label = "{}, z={:.1f}, s={:.2f}".format(
+                cat_name.get(p["category_id"], str(p["category_id"])), c[2], p["score"])
+            x, y, w, h = p["bbox"]
+            draw_2d_box(im, [x, y, x + w, y + h], color=color, thickness=1, label=label)
+            drew = True
+        if drew:
+            os.makedirs(vis_folder, exist_ok=True)
+            write_png(os.path.join(vis_folder, f"{imind:06d}.png"), im)
+            written += 1
+    return written

@@ -1,50 +1,30 @@
 """The greedy COCO matcher (`csrc/matcher.cc`) through ctypes, and the same
 loop in Python (`greedy_match_plain`, the tests' reference).
 
-The C++ source is compiled with g++ at first use into `_build/`, named by a
-hash of the source and the flags; it is written under a temporary name and
-renamed, so processes that build at once never load a partial file. A
-failed build or load raises: evaluation has no silent fallback to the Python
-loop.
+The C++ source is compiled with g++ at first use into `_build/`
+(`utils.cxx.build_library`). A failed build or load raises: evaluation has
+no silent fallback to the Python loop.
 """
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
 import pathlib
-import subprocess
 
 import numpy as np
 
+from ..utils import cxx
+
 _PKG = pathlib.Path(__file__).resolve().parents[1]
 SOURCE = _PKG / "csrc" / "matcher.cc"
-BUILD_DIR = _PKG / "_build"
-FLAGS = ("-O3", "-shared", "-fPIC")
+BUILD_DIR = cxx.BUILD_DIR
 
 _lib = None
 
 
 def build() -> pathlib.Path:
-    """Compile the matcher library unless a build of this source and these
-    flags exists; returns its path."""
-    digest = hashlib.sha256(" ".join(FLAGS).encode() + SOURCE.read_bytes()).hexdigest()[:16]
-    lib = BUILD_DIR / f"matcher-{digest}.so"
-    if lib.exists():
-        return lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.stem}.{os.getpid()}.so.tmp")
-    try:
-        res = subprocess.run(["g++", *FLAGS, "-o", str(tmp), str(SOURCE)],
-                             capture_output=True, text=True, check=False)
-    except FileNotFoundError as e:
-        raise RuntimeError(f"cannot build {SOURCE.name}: g++ not found") from e
-    if res.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"g++ failed on {SOURCE.name} ({res.returncode}):\n"
-                           f"{res.stdout}{res.stderr}")
-    os.replace(tmp, lib)   # atomic: a concurrent process never loads a partial file
-    return lib
+    """Compile the matcher library unless a build of this source exists;
+    returns its path."""
+    return cxx.build_library(SOURCE, BUILD_DIR)
 
 
 def _library():

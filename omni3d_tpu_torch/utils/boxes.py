@@ -125,14 +125,18 @@ def nonempty(boxes: torch.Tensor, threshold: float = 0.0) -> torch.Tensor:
 
 # ------------------------- numpy host-side versions -------------------------
 
-def iou_np(box_a: np.ndarray, box_b: np.ndarray) -> np.ndarray:
-    """Cross IoU, numpy, (M,4) x (N,4) -> (M,N) (reference math_util.py:850-906
+def iou_np(box_a: np.ndarray, box_b: np.ndarray, ign_area_b: bool = False) -> np.ndarray:
+    """Cross IoU, numpy, (M,4) x (N,4) -> (M,N), or with ign_area_b the
+    intersection over a's area (reference math_util.py:850-906
     iou(mode='cross')); the host's 2D IoU of evaluation."""
     lt = np.maximum(box_a[:, None, :2], box_b[None, :, :2])
     rb = np.minimum(box_a[:, None, 2:4], box_b[None, :, 2:4])
     wh = np.clip(rb - lt, 0, None)
     inter = wh[..., 0] * wh[..., 1]
     area_a = (box_a[:, 2] - box_a[:, 0]) * (box_a[:, 3] - box_a[:, 1])
-    area_b = (box_b[:, 2] - box_b[:, 0]) * (box_b[:, 3] - box_b[:, 1])
-    union = area_a[:, None] + area_b[None, :] - inter
+    if ign_area_b:
+        union = area_a[:, None]
+    else:
+        area_b = (box_b[:, 2] - box_b[:, 0]) * (box_b[:, 3] - box_b[:, 1])
+        union = area_a[:, None] + area_b[None, :] - inter
     return inter / np.where(union > 0, union, 1.0)

@@ -1,11 +1,12 @@
-"""Metrics logging: terminal + metrics.json lines + TensorBoard events.
+"""Metrics logging: terminal + metrics.json lines + TensorBoard events, and
+training images.
 
 Port of `omni3d_tpu.utils.events` (which replaces the reference's detectron2
 writers, tools/train_net.py:130,174: CommonMetricPrinter + JSONWriter +
-TensorboardXWriter) without `put_image`, which waits for the training
-visualisation. The TensorBoard writer is optional: it activates when the
-`tensorboard` package imports, and degrades silently to terminal + json
-otherwise.
+TensorboardXWriter). `put_image` writes PNG (the JAX package writes JPEG
+through cv2; the port has its own PNG writer and no JPEG encoder). The
+TensorBoard writer is optional: it activates when the `tensorboard` package
+imports, and degrades silently to terminal + json otherwise.
 """
 from __future__ import annotations
 
@@ -15,6 +16,8 @@ import time
 from collections import defaultdict, deque
 
 import numpy as np
+
+from ..data.image import write_png
 
 
 def _make_tb_writer(output_dir: str):
@@ -37,11 +40,29 @@ class EventStorage:
         self._written = set()
         self._file = None
         self._tb = None
+        self._output_dir = output_dir
         if output_dir:
             os.makedirs(output_dir, exist_ok=True)
             self._file = open(os.path.join(output_dir, "metrics.json"), "a")
             self._tb = _make_tb_writer(output_dir)
         self._t0 = time.time()
+
+    def put_image(self, name: str, image_rgb) -> str | None:
+        """Save a training visualisation (H, W, 3) RGB uint8 as
+        <output_dir>/vis/iter_<iter:07d>_<name>.png, and to TensorBoard
+        where its writer exists (reference tensorboard put_image,
+        meta_arch/rcnn3d.py:158,245). Returns the path, or None without an
+        output directory."""
+        if not self._output_dir:
+            return None
+        vis_dir = os.path.join(self._output_dir, "vis")
+        os.makedirs(vis_dir, exist_ok=True)
+        path = os.path.join(vis_dir, f"iter_{self.iter:07d}_{name}.png")
+        image_rgb = np.asarray(image_rgb)
+        write_png(path, image_rgb[..., ::-1])
+        if self._tb is not None:
+            self._tb.add_image(name, image_rgb, self.iter, dataformats="HWC")
+        return path
 
     def put_scalar(self, name: str, value):
         value = float(value)

@@ -1,10 +1,21 @@
-"""3D geometry the cube head and `decode_cube` need (port of the matching
-functions of `omni3d_tpu.utils.geometry`). Batched over leading dims, f32;
-`virtual_scale` and `approx_eval_resolution` also serve the priors on the
-host, on Python floats."""
+"""3D geometry of the port (port of `omni3d_tpu.utils.geometry`): what the
+cube head and `decode_cube` need, and the projection, 2D-box and rotation
+helpers of rendering and visualisation. Batched over leading dims, on any
+device; `virtual_scale` and `approx_eval_resolution` also serve the priors
+on the host, on Python floats, and `mat2euler` / `euler2mat` are numpy host
+helpers as in the JAX package."""
 from __future__ import annotations
 
+import math
+
+import numpy as np
 import torch
+
+# Vertex layout of the canonical unit cube (reference math_util.py:37-46).
+UNIT_CUBE = np.array(
+    [[-0.5, -0.5, -0.5], [0.5, -0.5, -0.5], [0.5, 0.5, -0.5], [-0.5, 0.5, -0.5],
+     [-0.5, -0.5, 0.5], [0.5, -0.5, 0.5], [0.5, 0.5, 0.5], [-0.5, 0.5, 0.5]],
+    dtype=np.float32)
 
 # Per-vertex sign multipliers (l, h, w), in the reference's vertex order
 # (reference math_util.py:151-181).
@@ -38,6 +49,75 @@ def cuboid_verts(box3d: torch.Tensor, R: torch.Tensor | None = None) -> torch.Te
     return local + ctr[..., None, :]
 
 
+def fma32(a, b, c) -> np.ndarray:
+    """float32 a * b + c rounded once (a float64 product and sum, rounded to
+    float32): the fused multiply-add of XLA's CPU backend."""
+    return (np.asarray(a, np.float64) * b + c).astype(np.float32)
+
+
+def cuboid_verts_np(box3d, R) -> np.ndarray:
+    """`cuboid_verts` on the host in float32 numpy, for drawing: (..., 8, 3)
+    from (..., 6) boxes and (..., 3, 3) rotations. The rotation's sums are
+    the fused multiply-add chain fma(R2, l2, fma(R1, l1, R0 l0)) that XLA's
+    CPU backend emits for the JAX package's einsum (each fma as a float64
+    product and sum rounded once to float32), so the vertices, and the
+    pixels drawn from them, equal the JAX package's."""
+    box3d = np.asarray(box3d, np.float32)
+    R = np.asarray(R, np.float32)[..., None, :, :]
+    half = np.stack([box3d[..., 5], box3d[..., 4], box3d[..., 3]], -1) * np.float32(0.5)
+    local = (np.asarray(_VERT_SIGNS, np.float32) * half[..., None, :])[..., None, :]
+    rot = fma32(R[..., 2], local[..., 2],
+                fma32(R[..., 1], local[..., 1], R[..., 0] * local[..., 0]))
+    return rot + box3d[..., None, :3]
+
+
+def cuboid_verts_faces(box3d: torch.Tensor, R: torch.Tensor | None = None):
+    """Vertices plus the shared (12, 3) face index table (reference
+    math_util.py:116-219)."""
+    return cuboid_verts(box3d, R), torch.tensor(CUBOID_FACES, dtype=torch.int32,
+                                                device=box3d.device)
+
+
+def project_points(K: torch.Tensor, pts3d: torch.Tensor) -> torch.Tensor:
+    """(..., P, 3) camera-space points through (..., 3, 3) intrinsics ->
+    (..., P, 3) [u, v, z] with z the raw depth (reference
+    math_util.py:251-253); |z| < 1e-8 divides by +-1e-8."""
+    proj = torch.einsum("...ij,...pj->...pi", K, pts3d)
+    z = proj[..., 2:3]
+    tiny = torch.where(z < 0, torch.full_like(z, -1e-8), torch.full_like(z, 1e-8))
+    uv = proj[..., :2] / torch.where(z.abs() < 1e-8, tiny, z)
+    return torch.cat([uv, z], dim=-1)
+
+
+def cuboid_verts_2d(K: torch.Tensor, box3d: torch.Tensor, R: torch.Tensor | None = None):
+    """Projected cuboid corners: ((..., 8, 3) [u, v, z], (..., 8, 3) 3D
+    vertices) (reference get_cuboid_verts, math_util.py:221-259)."""
+    corners3d = cuboid_verts(box3d, R)
+    return project_points(K, corners3d), corners3d
+
+
+def box3d_to_box2d(K, box3d, R=None, clipw: float = 0.0, cliph: float = 0.0,
+                   xywh: bool = True, min_z: float = 0.20):
+    """Projected 2D box of 3D cuboids, vertices at depth <= min_z snapped to
+    the image corner their 3D signs point to (reference
+    convert_3d_box_to_2d, math_util.py:498-577). Returns (box2d (..., 4),
+    behind_camera (...,), fully_behind (...,))."""
+    verts2d, verts3d = cuboid_verts_2d(K, box3d, R)
+    behind = verts2d[..., 2] <= min_z
+    sx, sy = torch.sign(verts3d[..., 0]), torch.sign(verts3d[..., 1])
+    u0, v0 = verts2d[..., 0], verts2d[..., 1]
+    bx = torch.where(sx < 0, torch.zeros_like(u0),
+                     torch.where(sx > 0, torch.full_like(u0, clipw - 1.0), u0))
+    by = torch.where(sy < 0, torch.zeros_like(v0),
+                     torch.where(sy > 0, torch.full_like(v0, cliph - 1.0), v0))
+    snap = behind & (sx != 0) & (sy != 0)
+    u, v = torch.where(snap, bx, u0), torch.where(snap, by, v0)
+    x1, y1 = u.amin(-1), v.amin(-1)
+    x2, y2 = u.amax(-1), v.amax(-1)
+    box2d = torch.stack([x1, y1, x2 - x1, y2 - y1] if xywh else [x1, y1, x2, y2], dim=-1)
+    return box2d, behind.any(-1), behind.all(-1)
+
+
 def axis_angle_to_matrix(axis_angle: torch.Tensor) -> torch.Tensor:
     """Rodrigues formula; axis_angle (..., 3) whose norm is the angle."""
     angle = torch.linalg.norm(axis_angle, dim=-1, keepdim=True)
@@ -57,6 +137,19 @@ def axis_angle_to_matrix(axis_angle: torch.Tensor) -> torch.Tensor:
     )
     eye = torch.eye(3, dtype=R.dtype, device=R.device).expand(R.shape)
     return torch.where(small[..., None], eye, R)
+
+
+def matrix_to_axis_angle(R: torch.Tensor) -> torch.Tensor:
+    """Inverse Rodrigues; (..., 3, 3) -> (..., 3) axis * angle."""
+    cos = ((R.diagonal(dim1=-2, dim2=-1).sum(-1) - 1.0) * 0.5).clamp(-1.0, 1.0)
+    angle = torch.arccos(cos)
+    ax = torch.stack([R[..., 2, 1] - R[..., 1, 2], R[..., 0, 2] - R[..., 2, 0],
+                      R[..., 1, 0] - R[..., 0, 1]], dim=-1)
+    sin = torch.sin(angle)
+    small = sin.abs() < 1e-8
+    scale = torch.where(small, torch.full_like(angle, 0.5),
+                        angle / (2.0 * torch.where(small, torch.ones_like(sin), sin)))
+    return ax * scale[..., None]
 
 
 def _allocentric_M(K: torch.Tensor, u: torch.Tensor, v: torch.Tensor):
@@ -99,6 +192,11 @@ def rotation_6d_to_matrix(d6: torch.Tensor) -> torch.Tensor:
     b2 = a2p / torch.linalg.norm(a2p, dim=-1, keepdim=True).clamp(min=1e-12)
     b3 = torch.linalg.cross(b1, b2, dim=-1)
     return torch.stack([b1, b2, b3], dim=-2)
+
+
+def matrix_to_rotation_6d(R: torch.Tensor) -> torch.Tensor:
+    """Matrix -> 6D parametrization (its first two rows, flattened)."""
+    return torch.cat([R[..., 0, :], R[..., 1, :]], dim=-1)
 
 
 def quaternion_to_matrix(q: torch.Tensor) -> torch.Tensor:
@@ -154,6 +252,26 @@ def so3_relative_angle(R1, R2, eps: float = 1e-4, cos_angle: bool = False):
     trace = torch.einsum("...ij,...ij->...", R1, R2)   # trace(R1 @ R2^T)
     cos = ((trace - 1.0) * 0.5).clamp(-1.0 + eps, 1.0 - eps)
     return cos if cos_angle else torch.arccos(cos)
+
+
+def mat2euler(R) -> np.ndarray:
+    """Rotation matrix -> euler angles (x, y, z), host numpy helper
+    (reference math_util.py:72-82)."""
+    R = np.asarray(R)
+    sy = math.sqrt(R[0, 0] * R[0, 0] + R[1, 0] * R[1, 0])
+    return np.array([math.atan2(R[2, 1], R[2, 2]), math.atan2(-R[2, 0], sy),
+                     math.atan2(R[1, 0], R[0, 0])])
+
+
+def euler2mat(euler) -> np.ndarray:
+    """Euler angles -> rotation matrix R = Rz @ Ry @ Rx, host numpy helper
+    (reference math_util.py:86-105)."""
+    cx, cy, cz = (math.cos(v) for v in euler)
+    sx, sy, sz = (math.sin(v) for v in euler)
+    R_x = np.array([[1, 0, 0], [0, cx, -sx], [0, sx, cx]])
+    R_y = np.array([[cy, 0, sy], [0, 1, 0], [-sy, 0, cy]])
+    R_z = np.array([[cz, -sz, 0], [sz, cz, 0], [0, 0, 1]])
+    return R_z @ R_y @ R_x
 
 
 def virtual_scale(f, H, f0, H0):

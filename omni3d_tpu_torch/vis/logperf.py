@@ -63,6 +63,16 @@ def tabulate(rows, headers, tablefmt: str = "pipe") -> str:
                      + [line(r) for r in srows])
 
 
+def format_table(rows: list[list], headers: list[str]) -> str:
+    """Plain left-justified columns under a dashed rule."""
+    widths = [max(len(str(r[i])) for r in [headers] + rows) for i in range(len(headers))]
+
+    def fmt(row):
+        return "  ".join(str(v).ljust(w) for v, w in zip(row, widths))
+    sep = "-" * (sum(widths) + 2 * (len(widths) - 1))
+    return "\n".join([fmt(headers), sep] + [fmt(r) for r in rows])
+
+
 def print_ap_category_histogram(dataset, results):
     """Reference print_ap_category_histogram (logperf.py:9-41): N_COLS=9
     multi-column (category, AP2D, AP3D) x3 pipe table, cyan."""
@@ -119,6 +129,20 @@ def print_ap_analysis_table(results: dict, title: str = "Omni3D analysis"):
 # entries (size splits small/med/large; depth splits near/med/far) — no
 # Omni3D category uses these names
 STAT_SUFFIXES = frozenset({"small", "med", "large", "near", "far"})
+
+
+def print_ap_category_table(per_cat: dict, cat_names: dict, title: str = ""):
+    """Per-category AP3D ({category id: AP}) as the category histogram."""
+    if title:
+        print(title)
+    print_ap_category_histogram(
+        title or "dataset",
+        {cat_names.get(cid, cid): {"AP2D": float("nan"), "AP3D": ap}
+         for cid, ap in sorted(per_cat.items())})
+
+
+def print_dataset_results(results: dict):
+    print_ap_analysis_table(results)
 
 
 def _is_per_category(metric: str) -> bool:

@@ -91,3 +91,44 @@ def test_loads_without_pyyaml():
         "[m for m in sys.modules if sys.modules[m] is not None]\n"
     )
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)
+
+
+@pytest.mark.parametrize("path", [None] + CONFIGS,
+                         ids=lambda p: "defaults" if p is None else os.path.basename(p))
+def test_dump_equals_jax_and_round_trips(path, tmp_path):
+    """`CfgNode.dump` is byte-equal to the JAX package's PyYAML dump for the
+    defaults and each config merged into them; `save` writes it, and the
+    port's reader and PyYAML read it back equal to the config."""
+    a, b = torch_cfg(), jax_cfg()
+    if path:
+        a.merge_from_file(path)
+        b.merge_from_file(path)
+    text = a.dump()
+    assert text == b.dump()
+    a.save(str(tmp_path / "sub" / "config.yaml"))
+    with open(tmp_path / "sub" / "config.yaml") as f:
+        saved = f.read()
+    assert saved == text
+    want = yaml.safe_load(text)
+    assert read_yaml(saved) == want
+    assert want == {k: v for k, v in yaml.safe_load(b.dump()).items()}
+    c = torch_cfg()
+    c.merge_from_file(str(tmp_path / "sub" / "config.yaml"))
+    assert c.dump() == text
+
+
+def test_dump_yaml_scalar_styles():
+    """Strings that need quoting, floats in PyYAML's forms, nested and empty
+    containers: the bytes of `yaml.safe_dump(..., sort_keys=True)`."""
+    from omni3d_tpu_torch.config.cfg import dump_yaml
+    tree = {"s": ["", "true", "no", "1.5", "12", "a: b", "#x", "x #y", "it's", "-x", "- x",
+                  ":x", "cubercnn://a/b", "é", " s", "null", "2020-01-01", "0x1F", "1e5",
+                  "~", "a:b", "?x", "[a]", "@x", "x\ty", 'q"\\'],
+            "n": [[1, [2, 3]], [], {}], "e": {}, "z": None, "m": [{"x": 1, "y": [1, 2]}],
+            "f": [1e-5, 1e17, -0.0, float("inf"), float("-inf"), 3.0, 0.1 + 0.2, 100000000.0],
+            "b": [True, False]}
+    text = dump_yaml(tree)
+    assert text == yaml.safe_dump(tree, sort_keys=True)
+    back = read_yaml(text)
+    assert back == yaml.safe_load(text)
+    assert dump_yaml({}) == yaml.safe_dump({}) and read_yaml("") == {}

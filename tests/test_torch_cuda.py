@@ -1,6 +1,6 @@
 """The CUDA ROIAlign kernels (forward and backward) vs their plain PyTorch
-versions, the training entry point, a one-rank NCCL step and the
-evaluation's IoU3D, on the card.
+versions, the training entry point, a one-rank NCCL step, the
+evaluation's IoU3D, the demo and the cuboid rasterizer, on the card.
 
 These tests need a CUDA device and skip without one. They import no JAX, so
 they run on a machine without it; there, skip tests/conftest.py (it imports
@@ -390,3 +390,84 @@ def test_backbone_family_runs_on_the_card(device, opts):
     assert (multilevel_roi_align.launches - before[0],
             multilevel_roi_align.bwd_launches - before[1]) == (1, 1)
     assert logs["finite"] == 1.0 and bool(torch.isfinite(torch.as_tensor(logs["total_loss"])))
+
+
+@pytest.mark.cuda
+def test_demo_on_the_card(device, tmp_path):
+    """`tools.demo` on the card (narrow heads, seeded weights, two JPEG
+    fixtures, threshold 0): two forward launches per image, the three PNGs
+    at their sizes, and each image's detections equal to a direct
+    `inference` call on the same input (scores 1e-4, boxes 1e-2 px)."""
+    import os
+    import pathlib
+    import shutil
+
+    import numpy as np
+    from omni3d_tpu_torch.data.image import read_image_bgr
+    from omni3d_tpu_torch.models import rcnn3d
+    from omni3d_tpu_torch.tools import demo
+
+    root = pathlib.Path(__file__).resolve().parents[1]
+    folder = tmp_path / "imgs"
+    folder.mkdir()
+    names = ("q75_420_37x53", "q95_420_640x480")
+    for name in names:
+        shutil.copy(root / "tests" / "data" / "jpeg" / f"{name}.jpg", folder)
+    calls, real = [], demo.infer
+
+    def infer(model, cfg, image_bgr, K):
+        det = real(model, cfg, image_bgr, K)
+        calls.append((model, cfg, image_bgr, K, det))
+        return det
+    demo.infer = infer
+    before = multilevel_roi_align.launches
+    try:
+        records = demo.main(["--config-file", str(root / "configs" / "cubercnn_DLA34_FPN.yaml"),
+                             "--input-folder", str(folder), "--threshold", "0.0",
+                             "--output-dir", str(tmp_path / "out"),
+                             "MODEL.ROI_HEADS.NUM_CLASSES", "5", "MODEL.FPN.OUT_CHANNELS", "64",
+                             "MODEL.ROI_BOX_HEAD.FC_DIM", "128", "MODEL.ROI_CUBE_HEAD.FC_DIM",
+                             "128", "SEED", "0", "OUTPUT_DIR", str(tmp_path / "o")])
+    finally:
+        demo.infer = real
+    torch.cuda.synchronize()
+    assert multilevel_roi_align.launches - before == 2 * len(names)
+    for (model, cfg, img, K, det), rec in zip(calls, records):
+        for kind, shape in (("boxes", img.shape), ("novel", (512, 512, 3)), ("bev", (400, 400, 3))):
+            assert read_image_bgr(rec["files"][kind]).shape == shape
+        canvas, net_h, net_w = demo.network_input(cfg, img)
+        want = rcnn3d.inference(
+            model, rcnn3d.preprocess(torch.from_numpy(canvas[None]).to(device),
+                                     cfg.MODEL.PIXEL_MEAN, cfg.MODEL.PIXEL_STD),
+            torch.from_numpy(K[None]).to(device),
+            torch.tensor([img.shape[0] / net_h], device=device),
+            hw=torch.tensor([[net_h, net_w]], dtype=torch.float32, device=device),
+            **rcnn3d.inference_kwargs(cfg))
+        want = {k: v[0].float().cpu().numpy() for k, v in want.items()}
+        assert np.array_equal(det["valid"], want["valid"])
+        assert np.abs(det["scores"] - want["scores"]).max() <= 1e-4
+        assert np.abs(det["boxes"] - want["boxes"]).max() <= 1e-2
+        assert os.path.getsize(rec["files"]["boxes"]) > 0
+
+
+@pytest.mark.cuda
+def test_render_depth_map_card_equals_cpu(device):
+    """20 boxes at 640 x 480: silhouettes and nearest-instance indices
+    equal on the card and the CPU, depth within 1e-5 relative."""
+    import numpy as np
+    from omni3d_tpu_torch.utils.geometry import euler_angles_to_matrix
+    from omni3d_tpu_torch.utils.render import render_depth_map
+
+    rng = np.random.default_rng(1)
+    boxes = np.concatenate([np.stack([rng.uniform(-4, 4, 20), rng.uniform(-1, 1.5, 20),
+                                      rng.uniform(0.5, 25, 20)], 1),
+                            rng.uniform(0.5, 3.0, (20, 3))], 1).astype(np.float32)
+    R = euler_angles_to_matrix(torch.tensor(rng.uniform(-np.pi, np.pi, (20, 3)),
+                                            dtype=torch.float32)).numpy()
+    K = np.array([[500, 0, 320], [0, 500, 240], [0, 0, 1]], np.float32)
+    cs, cd, ci = (t.cpu() for t in render_depth_map(K, boxes, R, 640, 480, device=device))
+    ps, pd, pi = render_depth_map(K, boxes, R, 640, 480, device="cpu")
+    assert torch.equal(cs, ps) and torch.equal(ci, pi)
+    fin = torch.isfinite(pd)
+    assert torch.equal(torch.isfinite(cd), fin) and fin.any()
+    assert float(((cd[fin] - pd[fin]).abs() / pd[fin]).max()) <= 1e-5

@@ -19,7 +19,10 @@ def test_port_modules_load_no_jax():
     assert {"omni3d_tpu_torch.evaluation.omni3d_eval", "omni3d_tpu_torch.evaluation.native",
             "omni3d_tpu_torch.evaluation.error_stats", "omni3d_tpu_torch.ops.iou3d",
             "omni3d_tpu_torch.vis.logperf", "omni3d_tpu_torch.tools.bench_eval",
-            "omni3d_tpu_torch.parallel", "omni3d_tpu_torch.parallel.dist"} <= set(mods)
+            "omni3d_tpu_torch.parallel", "omni3d_tpu_torch.parallel.dist",
+            "omni3d_tpu_torch.data.jpeg", "omni3d_tpu_torch.utils.cxx",
+            "omni3d_tpu_torch.utils.render", "omni3d_tpu_torch.vis.draw",
+            "omni3d_tpu_torch.vis.vis", "omni3d_tpu_torch.tools.demo"} <= set(mods)
     for p in (ROOT / "omni3d_tpu_torch").rglob("*.py"):
         text = p.read_text()
         assert '"native"' not in text and "native/" not in text, p
@@ -29,6 +32,21 @@ def test_port_modules_load_no_jax():
         f"for m in {mods!r}: importlib.import_module(m)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'omni3d_tpu')]\n"
         "assert not bad, bad\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, check=True, timeout=120)
+
+
+def test_jpeg_reads_without_cv2_and_pil():
+    """The port's own decoder reads a JPEG fixture with cv2 and PIL
+    unimportable, bit-equal to the committed cv2 decode."""
+    code = (
+        "import sys\n"
+        "for name in ('cv2', 'PIL'): sys.modules[name] = None\n"
+        "from omni3d_tpu_torch.data.image import read_image_bgr\n"
+        "a = read_image_bgr('tests/data/jpeg/q75_420_37x53.jpg')\n"
+        "b = read_image_bgr('tests/data/jpeg/q75_420_37x53.png')\n"
+        "assert a.shape == (37, 53, 3) and (a == b).all()\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, check=True, timeout=120)
