@@ -127,7 +127,19 @@ Phases (each raises on failure):
      4 on phase 7's splits: the GT-vs-prediction panels after iterations 2
      and 4, the evaluation's sample dumps, and the dumps at score threshold
      0 where the sampled images have predictions. It prints the `demo:`
-     JSON line.
+     JSON line;
+ 11. the measurement tools at full width (DLA34-FPN, bf16, 512 px), each
+     through its `run` with the launch counts at 0: `tools.bench` at batch
+     1, 8 and 32 (3 rounds x 10 calls in turns; the bs 32 outputs of its
+     last call equal a direct `inference` call; the box and cube poolers
+     on that batch against the plain pooler with phase 2's tolerances),
+     `tools.bench_train` at bf16 batch 32 (3 rounds x 3 steps),
+     `tools.profile_stages` at batch 8 (its stage chain's outputs equal
+     `inference`'s) and `tools.profile_backbone` at batch 32 (its blocks in
+     order give `model.features` exactly), 2 rounds each: two forward
+     launches per inference call and one forward and one backward per
+     training step, by the wrappers' counts and in the profiled rounds,
+     0 < mfu <= 1 for every record. It prints the `measurement:` JSON line.
 The line before the last is the kernel summary as JSON; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -176,15 +188,6 @@ TWO_RANK_BS = 8                  # phase 8b: the global batch, half on each rank
 # phase 8b steps at BASE_LR (no warm-up factor), so each update stands well
 # above the float32 rounding of the weights it moves
 TWO_RANK_OPTS = ("TPU.COMPUTE_DTYPE", "float32", "SOLVER.WARMUP_FACTOR", "1.0")
-HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3 peak rate
-F32_OPS_PER_S = 67e12            # float32 outside the tensor cores
-
-
-def card_line():
-    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         check=True, timeout=60).stdout
-    return out.strip().splitlines()[0]
 
 
 def cuda_ms(fn, iters=10, warmup=3):
@@ -205,74 +208,9 @@ def cuda_ms(fn, iters=10, warmup=3):
     return statistics.median(times)
 
 
-def bound(bytes_moved, ops):
-    """(bound ms, "bytes" or "operations"): the larger of the bytes over the
-    card's memory rate and the float32 operations over its peak rate."""
-    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / F32_OPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
-def pool_work(boxes, levels, shapes, strides, sampling_ratio, C):
-    """What this run's data needs of one pooling and of its transpose:
-    (distinct pyramid cells with a nonzero tap weight, forward operations,
-    backward operations). Operations are float32, 2 per fused multiply-add,
-    the fewer of two counts: one FMA per channel for each tap of nonzero
-    weight (the sample weight folds into the four tap weights, which all C
-    channels share), or the banded form's FMAs per channel over the boxes'
-    per-axis bands (`ops.roi_align.axis_bands`): forward count_y x nnz(Ax) +
-    P x nnz(Ay), backward P x nnz(Ax) + nnz(Ay) x count_x."""
-    import torch
-    from omni3d_tpu_torch.ops.roi_align import _chunk_taps, axis_bands
-    B = boxes.shape[0]
-    P = 7
-    touched = torch.zeros(sum(B * h * w for h, w in shapes), dtype=torch.bool,
-                          device=boxes.device)
-    taps_live = 0
-    for _, _, taps, wy, wx in _chunk_taps(boxes, levels, shapes, strides, P,
-                                          sampling_ratio, C):
-        live = (wy[:, :, None] * wx[:, None, :]) != 0
-        for idx, w in taps:
-            nz = live & (w != 0)
-            taps_live += int(nz.sum())
-            touched[idx[nz]] = True
-    lv = levels.reshape(-1).long()
-    hs = torch.tensor([h for h, _ in shapes], device=boxes.device)[lv]
-    ws = torch.tensor([w for _, w in shapes], device=boxes.device)[lv]
-    scale = torch.tensor([1.0 / s for s in strides], dtype=torch.float32,
-                         device=boxes.device)[lv]
-    b = boxes.reshape(-1, 4) * scale[:, None] - 0.5
-    _, ny, ay = axis_bands(b[:, 1], b[:, 3] - b[:, 1], hs, P, sampling_ratio)
-    _, nx, ax = axis_bands(b[:, 0], b[:, 2] - b[:, 0], ws, P, sampling_ratio)
-    nnz_y, nnz_x = (ay != 0).sum((1, 2)), (ax != 0).sum((1, 2))
-    live = (ny > 0) & (nx > 0)
-    fwd = int(((ny * nnz_x + P * nnz_y) * live).sum())
-    bwd = int(((P * nnz_x + nnz_y * nx) * live).sum())
-    return int(touched.sum()), min(taps_live, fwd) * C * 2, min(taps_live, bwd) * C * 2
-
-
-def make_boxes(n, gen, device):
-    """(2, n, 4) boxes: edge cases (outside the image, degenerate, touching
-    the border, elongated past the SMAX clamp, one box for each of the five
-    levels) and random boxes of log-uniform size."""
-    import torch
-    edge = torch.tensor([
-        [-40, -30, -4, -6], [100, 100, 100, 140], [200, 220, 230, 220],
-        [IMG - 9, IMG - 7, IMG, IMG], [0, 0, IMG, IMG],
-        [0, 200, IMG, 208],                # 512 x 8 px -> p2, 128 cells: g = 19 > 9
-        [300, 0, 306, IMG],                # 6 x 512 px
-        [10, 10, 60, 60], [10, 10, 120, 120], [10, 10, 250, 250],
-        [-100, -100, 500, 500], [-500, -400, 900, 1000],   # p5, p6
-    ], dtype=torch.float32)
-    m = n - edge.shape[0]
-    size = torch.exp(torch.empty(2, m, 2).uniform_(2.0, 6.0, generator=gen))
-    xy = torch.rand(2, m, 2, generator=gen) * (IMG - size)
-    rand = torch.cat([xy, xy + size], -1)
-    return torch.cat([edge.expand(2, -1, -1), rand], 1).to(device)
-
-
 def kernel_vs_plain(device):
     import torch
+    from omni3d_tpu_torch.utils.benchtime import bound, make_boxes, pool_work
     from omni3d_tpu_torch.ops.roi_align import multilevel_roi_align_plain, route_levels
     from omni3d_tpu_torch.ops.roi_align_cuda import multilevel_roi_align
 
@@ -281,7 +219,7 @@ def kernel_vs_plain(device):
                for s in STRIDES]
     main_case, worst = None, 0.0
     for n in POOLER_BOXES:
-        boxes = make_boxes(n, gen, device)
+        boxes = make_boxes(n, gen, device, IMG)
         for routing in ("canonical", "fit"):
             levels = route_levels(boxes, STRIDES, 2, routing)
             if routing == "canonical" and n == POOLER_BOXES[0]:
@@ -365,12 +303,13 @@ def bwd_vs_plain(device):
     import torch
     from omni3d_tpu_torch.ops import roi_align_cuda as rac
     from omni3d_tpu_torch.ops.roi_align import multilevel_roi_align_plain_bwd, route_levels
+    from omni3d_tpu_torch.utils.benchtime import make_boxes
 
     gen = torch.Generator().manual_seed(1)
     feats32 = [torch.randn(2, IMG // s, IMG // s, CHANNELS, generator=gen).to(device)
                for s in STRIDES]
     shapes = [f.shape[1:3] for f in feats32]
-    boxes = make_boxes(TRAIN_ROIS, gen, device)
+    boxes = make_boxes(TRAIN_ROIS, gen, device, IMG)
     g32 = torch.randn((2, TRAIN_ROIS, 7, 7, CHANNELS), generator=gen).to(device)
     worst = 0.0
     for routing in ("canonical", "fit"):
@@ -417,13 +356,14 @@ def time_kernels_at_train_shape(device, bs=32):
     from omni3d_tpu_torch.ops import roi_align_cuda as rac
     from omni3d_tpu_torch.ops.roi_align import (multilevel_roi_align_plain,
                                                 multilevel_roi_align_plain_bwd, route_levels)
+    from omni3d_tpu_torch.utils.benchtime import bound, make_boxes, pool_work
 
     gen = torch.Generator().manual_seed(2)
     feats = [torch.randn(bs, IMG // s, IMG // s, CHANNELS, generator=gen).to(device,
                                                                             torch.bfloat16)
              for s in STRIDES]
     shapes = [tuple(f.shape[1:3]) for f in feats]
-    boxes = torch.cat([make_boxes(TRAIN_ROIS, gen, device) for _ in range(bs // 2)], 0)
+    boxes = torch.cat([make_boxes(TRAIN_ROIS, gen, device, IMG) for _ in range(bs // 2)], 0)
     levels = route_levels(boxes, STRIDES, 2, "canonical")
     g = torch.randn((bs, TRAIN_ROIS, 7, 7, CHANNELS), generator=gen).to(device, torch.bfloat16)
     bwd = lambda: rac._backward_kernel(g, boxes, levels, shapes, STRIDES, 7, 0, torch.bfloat16)
@@ -2210,6 +2150,132 @@ def demo_path(device, tmp, weights):
     return summary, launches
 
 
+# phase 11: the measurement tools on the card
+BENCH_BATCHES, BENCH_ROUNDS, BENCH_ITERS = (1, 8, 32), 3, 10
+BENCH_TRAIN = (32, 3, 3)           # bf16 batch, rounds, steps per round
+STAGES_BS, BACKBONE_BS, PROFILE_ROUNDS, PROFILE_ITERS = 8, 32, 2, 5
+
+
+def _counted(run):
+    """run() with the kernels' launch counts set to 0 just before it; returns
+    (its result, {"forward": n, "backward": n} launched during it)."""
+    import torch
+    from omni3d_tpu_torch.ops.roi_align_cuda import multilevel_roi_align
+    multilevel_roi_align.launches = 0
+    multilevel_roi_align.bwd_launches = 0
+    out = run()
+    torch.cuda.synchronize()
+    return out, {"forward": multilevel_roi_align.launches,
+                 "backward": multilevel_roi_align.bwd_launches}
+
+
+def _check_mfu(what, mfu):
+    if not 0 < mfu <= 1:
+        raise AssertionError(f"{what}: mfu {mfu} outside (0, 1]")
+
+
+def _equal_outputs(what, got, want):
+    import torch
+    bad = [k for k, v in want.items() if not torch.equal(got[k], v)]
+    if bad:
+        raise AssertionError(f"{what}: outputs differ from a direct inference call in {bad}")
+
+
+def measurement_path(device):
+    """Phase 11: `tools.bench` at bs 1 / 8 / 32, `tools.bench_train` at bf16
+    bs 32, `tools.profile_stages` at bs 8 and `tools.profile_backbone` at bs
+    32, all at full width through their `run` functions, each driven with
+    the launch counts at 0. Binding checks: bs 32's outputs from the bench's
+    last call equal a direct `inference` call; the stage chain's outputs
+    equal `inference`'s; the trunk blocks run in order give `model.features`'
+    outputs exactly; two forward launches per inference call and one forward
+    and one backward per training step (the wrappers' counts and the
+    profiled rounds' kernels); the box and cube poolers on the bench's bs 32
+    batch against the plain pooler with phase 2's tolerances; 0 < mfu <= 1
+    for every record. Returns (records, launches by tool, the poolers'
+    largest error)."""
+    import torch
+    from omni3d_tpu_torch.models import rcnn3d
+    from omni3d_tpu_torch.ops.roi_align import multilevel_roi_align_plain, route_levels
+    from omni3d_tpu_torch.ops.roi_align_cuda import multilevel_roi_align
+    from omni3d_tpu_torch.tools import bench, bench_train, profile_backbone, profile_stages
+
+    cfg = bench.config()
+    kw = rcnn3d.inference_kwargs(cfg)
+    launches, records = {}, {}
+    t0 = time.perf_counter()
+    (records["bench"], last), launches["bench"] = _counted(lambda: bench.run(
+        cfg, BENCH_BATCHES, rounds=BENCH_ROUNDS, iters=BENCH_ITERS, device=device))
+    rec = records["bench"]
+    if rec["kernel_launches_per_call"] != {"forward": 2.0, "backward": 0.0}:
+        raise AssertionError(f"bench: launches per call {rec['kernel_launches_per_call']}")
+    for row in rec["batch_sizes"]:
+        per_call = row["profile"]["roi_align_launches_per_call"]
+        if per_call != {"roi_align_fwd": 2.0, "roi_align_bwd": 0.0}:
+            raise AssertionError(f"bench bs={row['bs']}: profiled launches {per_call}")
+        _check_mfu(f"bench bs={row['bs']}", row["mfu"])
+    model = bench.random_model(cfg, device)
+    (_, images, Ks, ratios), got = last[BENCH_BATCHES[-1]]
+    _equal_outputs(f"bench bs={BENCH_BATCHES[-1]}", got,
+                   rcnn3d.inference(model, images, Ks, ratios, **kw))
+    print(f"  bench bs={BENCH_BATCHES[-1]}: the last call's outputs equal a direct inference call")
+
+    # the poolers on the bench's largest batch, kernel vs plain
+    _, s, _ = profile_stages.stage_chain(model, images, Ks, ratios, **kw)
+    pooler_err = 0.0
+    for what, boxes in (("box", s["prop_boxes"]), ("cube", rcnn3d.scale_proposals(
+            s["dets"]["boxes"], cfg.MODEL.ROI_CUBE_HEAD.SCALE_ROI_BOXES))):
+        got = multilevel_roi_align(s["flist"], boxes, STRIDES, 7, kw["sampling_ratio"])
+        want = multilevel_roi_align_plain(s["flist"], boxes,
+                                          route_levels(boxes, STRIDES, 2, "canonical"),
+                                          STRIDES, 7, kw["sampling_ratio"])
+        err, tol, frac, ok = fwd_agreement(got, want)
+        print(f"  {what} pooler at bs={BENCH_BATCHES[-1]} x {boxes.shape[1]} boxes: kernel vs "
+              f"plain max|diff| {err:.3e} (tol {tol:.1e}, differing {frac:.1e})")
+        if not ok:
+            raise AssertionError(f"{what} pooler disagrees with plain: {err} (tol {tol}), {frac}")
+        pooler_err = max(pooler_err, err)
+    del s, got, want
+
+    bs, rounds, iters = BENCH_TRAIN
+    records["bench_train"], launches["bench_train"] = _counted(lambda: bench_train.run(
+        cfg, bs, torch.bfloat16, rounds=rounds, iters=iters, device=device))
+    rec = records["bench_train"]
+    if rec["kernel_launches_per_step"] != {"forward": 1.0, "backward": 1.0}:
+        raise AssertionError(f"bench_train: launches per step {rec['kernel_launches_per_step']}")
+    per_step = rec["profile"]["roi_align_launches_per_call"]
+    if per_step != {"roi_align_fwd": 1.0, "roi_align_bwd": 1.0}:
+        raise AssertionError(f"bench_train: profiled launches per step {per_step}")
+    _check_mfu("bench_train", rec["mfu"])
+    if not 1.0 < rec["model_gflop_backward"] / rec["model_gflop_forward"] <= 2.0:
+        raise AssertionError(f"bench_train: backward / forward FLOPs "
+                             f"{rec['model_gflop_backward'] / rec['model_gflop_forward']}")
+
+    (records["profile_stages"], out, (images, Ks, ratios)), launches["profile_stages"] = \
+        _counted(lambda: profile_stages.run(cfg, STAGES_BS, rounds=PROFILE_ROUNDS,
+                                            iters=PROFILE_ITERS, device=device, model=model))
+    rec = records["profile_stages"]
+    _equal_outputs(f"profile_stages bs={STAGES_BS} stage chain", out,
+                   rcnn3d.inference(model, images, Ks, ratios, **kw))
+    print(f"  profile_stages bs={STAGES_BS}: the stage chain's outputs equal inference's")
+    if rec["roi_align_launches_per_call"] != {"roi_align_fwd": 2.0, "roi_align_bwd": 0.0}:
+        raise AssertionError(f"profile_stages: profiled launches {rec['roi_align_launches_per_call']}")
+    _check_mfu("profile_stages", rec["mfu"])
+
+    (records["profile_backbone"], env, (feats, flist)), _ = _counted(
+        lambda: profile_backbone.run(cfg, BACKBONE_BS, rounds=PROFILE_ROUNDS,
+                                     iters=PROFILE_ITERS, device=device, model=model))
+    if not (all(torch.equal(env["feats"][k], v) for k, v in feats.items())
+            and all(torch.equal(a, b) for a, b in zip(env["flist"], flist))):
+        raise AssertionError("profile_backbone: the blocks in order differ from model.features")
+    print(f"  profile_backbone bs={BACKBONE_BS}: the blocks in order give model.features exactly")
+    for name, n in launches.items():
+        if n["forward"] == 0:
+            raise AssertionError(f"{name}: the forward kernel was not launched")
+    print(f"  phase 11 took {time.perf_counter() - t0:.1f} s; kernel launches by tool {launches}")
+    return records, launches, pooler_err
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2221,13 +2287,14 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     device = torch.device("cuda", 0)
-    card = card_line()
+    from omni3d_tpu_torch.utils.benchtime import card as card_of
+    card = card_of()
     print(f"card: {card}")
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}; TF32 off (cuDNN and matmul)")
 
     from omni3d_tpu_torch.ops import roi_align_cuda
-    print("[1/10] build")
+    print("[1/11] build")
     path, secs, log = roi_align_cuda.build()
     print(f"  {os.path.relpath(path, ROOT)} built in {secs:.1f} s")
     for line in log.splitlines():
@@ -2238,37 +2305,41 @@ def main():
         gate_probe(device, int(sys.argv[2]))
         return
 
-    print("[2/10] forward kernel vs plain PyTorch version")
+    print("[2/11] forward kernel vs plain PyTorch version")
     main_case, worst = kernel_vs_plain(device)
 
-    print("[3/10] inference main path: DLA34-FPN inference at 512 px")
+    print("[3/11] inference main path: DLA34-FPN inference at 512 px")
     timings, launches, _ = main_path(device)
 
-    print("[4/10] backward kernel vs plain PyTorch version")
+    print("[4/11] backward kernel vs plain PyTorch version")
     worst_bwd = bwd_vs_plain(device)
     at_train = time_kernels_at_train_shape(device)
 
-    print("[5/10] training main path: DLA34-FPN training steps at 512 px")
+    print("[5/11] training main path: DLA34-FPN training steps at 512 px")
     train_rows, train_launches, plain_cmp = train_path(device)
 
     with tempfile.TemporaryDirectory() as tmp:
-        print("[6/10] training entry point: tools.train_net on a synthetic Omni3D-format dataset")
+        print("[6/11] training entry point: tools.train_net on a synthetic Omni3D-format dataset")
         entry, entry_launches, weights = entry_point_path(device, tmp)
 
-        print("[7/10] evaluation: tools.train_net --eval-only on synthetic test splits")
+        print("[7/11] evaluation: tools.train_net --eval-only on synthetic test splits")
         evaluation, eval_launches = evaluation_path(device, tmp, weights)
 
-        print("[8/10] data parallelism: DDP over NCCL at world size 1, two ranks on the card "
+        print("[8/11] data parallelism: DDP over NCCL at world size 1, two ranks on the card "
               "over gloo, --eval-only at world size 2")
         distributed, ddp_launches = distributed_path(device, tmp, weights)
 
-        print("[9/10] other backbones at full width: ResNet34-FPN as phases 3 and 5-7 drive "
+        print("[9/11] other backbones at full width: ResNet34-FPN as phases 3 and 5-7 drive "
               "DLA-34, then every other builder and DLA variant")
         backbones, bb_launches = backbones_path(device, tmp, timings, train_rows)
 
-        print("[10/10] the demo: JPEG fixtures, tools.demo at full width, render_depth_map on "
+        print("[10/11] the demo: JPEG fixtures, tools.demo at full width, render_depth_map on "
               "the card, train_net with VIS_PERIOD and TEST.EVAL_PERIOD")
         demo, demo_launches = demo_path(device, tmp, weights)
+
+    print("[11/11] the measurement tools: tools.bench at bs 1 / 8 / 32, tools.bench_train at "
+          "bf16 bs 32, tools.profile_stages, tools.profile_backbone")
+    measurement, tool_launches, tools_pooler_err = measurement_path(device)
 
     bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "omni3d_tpu")]
     assert not bad, bad
@@ -2279,6 +2350,7 @@ def main():
     print("distributed: " + json.dumps(distributed))
     print("backbones: " + json.dumps(backbones))
     print("demo: " + json.dumps(demo))
+    print("measurement: " + json.dumps(measurement))
     # phase 9's kernel-vs-plain checks on ResNet-34's own pooler inputs (its
     # random-weight maps are larger than DLA-34's, so are the absolute errors)
     bb_pooler = backbones["resnet34"]["training"]["first_pooler_call_vs_plain"]
@@ -2292,14 +2364,16 @@ def main():
         "also_replaces": "omni3d_tpu/ops/roi_align_pallas.py:469",
         "launches": (launches + train_launches["forward"] + entry_launches["forward"]
                      + eval_launches["forward"] + ddp_launches["forward"]
-                     + bb_launches["forward"] + demo_launches["forward"]),
+                     + bb_launches["forward"] + demo_launches["forward"]
+                     + sum(n["forward"] for n in tool_launches.values())),
         "launches_by_path": {"inference": launches, "training": train_launches["forward"],
                              "training_entry_point": entry_launches["forward"],
                              "evaluation": eval_launches["forward"],
                              "distributed": ddp_launches["forward"],
                              "backbones": bb_launches["forward"],
-                             "demo": demo_launches["forward"]},
-        "max_abs_err": max(worst, at_train["fwd_max_abs_err"],
+                             "demo": demo_launches["forward"],
+                             **{k: n["forward"] for k, n in tool_launches.items()}},
+        "max_abs_err": max(worst, at_train["fwd_max_abs_err"], tools_pooler_err,
                            evaluation["roi_align_fwd_max_abs_err"],
                            max(c["max_abs_err"] for c in demo["demo"]["pooler_vs_plain"]),
                            distributed["two_ranks_one_card_gloo"]["fwd_max_abs_err"],
@@ -2320,13 +2394,15 @@ def main():
         "source": "omni3d_tpu_torch/csrc/roi_align_bwd.cu",
         "replaces": "omni3d_tpu/ops/roi_align_bwd_pallas.py:61",
         "launches": (train_launches["backward"] + entry_launches["backward"]
-                     + ddp_launches["backward"] + bb_launches["backward"]),
+                     + ddp_launches["backward"] + bb_launches["backward"]
+                     + sum(n["backward"] for n in tool_launches.values())),
         "launches_by_path": {"training": train_launches["backward"],
                              "training_entry_point": entry_launches["backward"],
                              "evaluation": eval_launches["backward"],
                              "distributed": ddp_launches["backward"],
                              "backbones": bb_launches["backward"],
-                             "demo": demo_launches["backward"]},
+                             "demo": demo_launches["backward"],
+                             **{k: n["backward"] for k, n in tool_launches.items()}},
         "max_abs_err": max(worst_bwd, at_train["bwd_max_abs_err"],
                            distributed["two_ranks_one_card_gloo"]["bwd_max_abs_err"],
                            bb_pooler["bwd_max_abs_err"]),

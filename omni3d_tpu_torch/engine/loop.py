@@ -57,6 +57,7 @@ from ..models.rcnn3d import build_model, inference, inference_kwargs
 from ..parallel import dist as dist_lib
 from ..solver.build import build_lr_schedule, build_optimizer
 from ..utils import checkpoint as ckpt
+from ..utils.benchtime import device_busy_ms
 from ..utils.events import EventStorage
 from ..utils.priors import load_priors_
 from ..vis.logperf import print_per_category_table
@@ -106,22 +107,6 @@ def load_train_state(run: TrainRun, state: dict) -> None:
     run.step.state["step"] = int(saved["step"])
     run.step.state["skipped"] = int(saved["skipped"])
     run.step.state["recent_loss"].copy_(saved["recent_loss"])
-
-
-def device_busy_ms(events) -> float:
-    """Union of [start, end) intervals of profiler events, ms."""
-    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
-    total, cur_s, cur_e = 0, None, None
-    for s, e in spans:
-        if cur_e is None or s > cur_e:
-            if cur_e is not None:
-                total += cur_e - cur_s
-            cur_s, cur_e = s, e
-        else:
-            cur_e = max(cur_e, e)
-    if cur_e is not None:
-        total += cur_e - cur_s
-    return total / 1e3   # us -> ms
 
 
 class _StepProfile:

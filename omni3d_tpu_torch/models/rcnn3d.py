@@ -269,15 +269,23 @@ def inference(model: CubeRCNN, images, Ks, im_scales_ratio, hw=None, oracle=None
 def _cube_branch_outputs(model, flist, dets, Ks, im_scales_ratio, sampling_ratio,
                          prop_boxes, prop_valid):
     """Cube branch + output packing shared by normal and oracle inference."""
-    cfg = model.cfg
-    ch_cfg = cfg.MODEL.ROI_CUBE_HEAD
-    heads = model.roi_heads
+    ch_cfg = model.cfg.MODEL.ROI_CUBE_HEAD
     det_boxes = dets["boxes"]
     B, topk = det_boxes.shape[:2]
     cube_boxes = scale_proposals(det_boxes, ch_cfg.SCALE_ROI_BOXES)
     pooled = multilevel_roi_align(flist, cube_boxes, FEATURE_STRIDES,
                                   ch_cfg.POOLER_RESOLUTION, sampling_ratio)
-    cube_out = heads.cube_head(pooled.reshape(B * topk, *pooled.shape[2:]))
+    cube_out = model.roi_heads.cube_head(pooled.reshape(B * topk, *pooled.shape[2:]))
+    return decode_outputs(model, dets, cube_out, Ks, im_scales_ratio, prop_boxes, prop_valid)
+
+
+def decode_outputs(model, dets, cube_out, Ks, im_scales_ratio, prop_boxes, prop_valid):
+    """`decode_cube` of the cube head's outputs for the detections `dets`,
+    then `inference`'s output dict."""
+    ch_cfg = model.cfg.MODEL.ROI_CUBE_HEAD
+    heads = model.roi_heads
+    det_boxes = dets["boxes"]
+    B, topk = det_boxes.shape[:2]
     cube_out = tuple(t.float() if t is not None else None for t in cube_out)
 
     # per-box network-res intrinsics (reference roi_heads.py:374-396); the

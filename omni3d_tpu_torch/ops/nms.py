@@ -78,11 +78,21 @@ def nms_indices(boxes, scores, iou_threshold, max_out: int, valid=None):
     return top_idx, out_valid
 
 
-def batched_nms_indices(boxes, scores, idxs, iou_threshold, max_out, valid=None):
-    """Class-aware NMS via detectron2's coordinate offset: boxes of different
-    `idxs` never suppress each other. The offset is the largest finite
-    coordinate of the row's boxes plus 1."""
+def _offset_by_class(boxes, idxs):
+    """detectron2's coordinate offset: each row's boxes shifted by idx x
+    (the row's largest finite coordinate + 1), so boxes of different `idxs`
+    never overlap."""
     finite = torch.where(torch.isfinite(boxes), boxes, torch.zeros_like(boxes))
     max_coord = finite.amax(dim=(-2, -1), keepdim=True)[..., 0] + 1.0
-    shifted = boxes + (idxs.to(boxes.dtype) * max_coord)[..., None]
-    return nms_indices(shifted, scores, iou_threshold, max_out, valid)
+    return boxes + (idxs.to(boxes.dtype) * max_coord)[..., None]
+
+
+def batched_nms_mask(boxes, scores, idxs, iou_threshold, valid=None):
+    """Class-aware `nms_mask`: boxes of different `idxs` never suppress each
+    other. idxs (..., N) int."""
+    return nms_mask(_offset_by_class(boxes, idxs), scores, iou_threshold, valid)
+
+
+def batched_nms_indices(boxes, scores, idxs, iou_threshold, max_out, valid=None):
+    """Class-aware `nms_indices` through the same coordinate offset."""
+    return nms_indices(_offset_by_class(boxes, idxs), scores, iou_threshold, max_out, valid)

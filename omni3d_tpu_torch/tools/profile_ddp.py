@@ -47,7 +47,7 @@ def _sync(device):
 def _rank(rank, world, port, args, result_path):
     """One rank of a run at world size `world`; rank 0 writes the result."""
     from ..config import get_default_cfg
-    from ..engine.loop import device_busy_ms
+    from ..utils.benchtime import device_busy_ms
     from ..parallel import dist as dist_lib
     from .synthetic import synthetic_trainer, train_batch
 

@@ -37,7 +37,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)
 def main(argv=None):
     from ..config import get_default_cfg
     from ..engine import train as train_mod
-    from ..engine.loop import device_busy_ms
+    from ..utils.benchtime import device_profile
     from .synthetic import synthetic_trainer
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -123,20 +123,8 @@ def main(argv=None):
         s - f - o for s, f, o in zip(stages.pop("step"), stages["forward, all losses"],
                                      stages["optimizer step"])]
 
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(args.steps):
-            step(batch, gen)
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA and e.name
-               and not e.name.startswith(("Memcpy", "Memset"))]
-    by_name: dict[str, float] = {}
-    for e in kernels:
-        by_name[e.name] = by_name.get(e.name, 0.0) + (e.time_range.end - e.time_range.start)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:15]
-    roi = {n: us / 1e3 / args.steps for n, us in by_name.items() if "roi_align" in n}
-    busy = device_busy_ms(kernels) / args.steps
+    prof = device_profile(lambda: step(batch, gen), args.steps, torch.device("cuda"), top=15)
+    busy = prof["device_busy_ms_per_call"]
 
     card = torch.cuda.get_device_name(0)
     res = {
@@ -146,9 +134,9 @@ def main(argv=None):
         "stages_ms": {k: statistics.median(v) for k, v in stages.items()},
         "device_busy_ms_per_step": busy,
         "device_busy_share": busy / statistics.median(wall),
-        "kernels_per_step": len(kernels) / args.steps,
-        "roi_align_kernels_ms_per_step": roi,
-        "top_kernels_ms_per_step": [(n[:120], us / 1e3 / args.steps) for n, us in top],
+        "kernels_per_step": prof["kernels_per_call"],
+        "roi_align_kernels_ms_per_step": prof["roi_align_ms_per_call"],
+        "top_kernels_ms_per_step": prof["top_kernels_ms_per_call"],
         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
     }
     for k, v in res["stages_ms"].items():

@@ -70,6 +70,10 @@ class EventStorage:
         self._latest[name] = value
         self._written.discard(name)
 
+    def put_scalars(self, **kwargs):
+        for k, v in kwargs.items():
+            self.put_scalar(k, v)
+
     def median(self, name):
         h = self._history[name]
         return float(np.median(h)) if h else float("nan")

@@ -107,12 +107,24 @@ def print_ap_analysis_histogram(results):
           + colored(table, "cyan"))
 
 
-def print_ap_omni_histogram(results):
-    """Reference print_ap_omni_histogram (logperf.py:93-117), magenta."""
+def _ap_table(results):
+    """Grid table of AP2D / AP3D per dataset (the dataset and Omni3D
+    histograms' layout)."""
     rows = [[name, m.get("iters", "-"), m.get("AP2D"), m.get("AP3D")]
             for name, m in results.items() if isinstance(m, dict)]
-    table = tabulate(rows, headers=["Dataset", "#iters", "AP2D", "AP3D"],
-                     tablefmt="grid")
+    return tabulate(rows, headers=["Dataset", "#iters", "AP2D", "AP3D"], tablefmt="grid")
+
+
+def print_ap_dataset_histogram(results):
+    """Reference print_ap_dataset_histogram (logperf.py:70-90): AP2D/AP3D
+    per dataset, grid table, cyan."""
+    table = _ap_table(results)
+    print("Per-dataset performance on test set:\n" + colored(table, "cyan"))
+
+
+def print_ap_omni_histogram(results):
+    """Reference print_ap_omni_histogram (logperf.py:93-117), magenta."""
+    table = _ap_table(results)
     print("Omni3D performance on test set. The numbers below should be used "
           "to compare to other approaches on Omni3D, such as Cube R-CNN")
     print("Performance on Omni3D:\n" + colored(table, "magenta"))

@@ -1,6 +1,7 @@
 """The CUDA ROIAlign kernels (forward and backward) vs their plain PyTorch
 versions, the training entry point, a one-rank NCCL step, the
-evaluation's IoU3D, the demo and the cuboid rasterizer, on the card.
+evaluation's IoU3D, the demo, the cuboid rasterizer, the inference bench
+and the stage chain, on the card.
 
 These tests need a CUDA device and skip without one. They import no JAX, so
 they run on a machine without it; there, skip tests/conftest.py (it imports
@@ -471,3 +472,41 @@ def test_render_depth_map_card_equals_cpu(device):
     fin = torch.isfinite(pd)
     assert torch.equal(torch.isfinite(cd), fin) and fin.any()
     assert float(((cd[fin] - pd[fin]).abs() / pd[fin]).max()) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_bench_at_bs1_on_the_card(device):
+    """`tools.bench` at bs 1 (full width, bf16): two forward launches per
+    call, outputs equal to a direct `inference` call, a device profile and
+    0 < mfu <= 1."""
+    from omni3d_tpu_torch.models import rcnn3d
+    from omni3d_tpu_torch.tools import bench
+
+    cfg = bench.config()
+    record, last = bench.run(cfg, (1,), rounds=1, iters=2, device=device)
+    row = record["batch_sizes"][0]
+    assert record["kernel_launches_per_call"] == {"forward": 2.0, "backward": 0.0}
+    assert row["profile"]["roi_align_launches_per_call"]["roi_align_fwd"] == 2.0
+    assert 0 < row["mfu"] <= 1 and 0 < row["device_busy_share"] <= 1
+    (_, images, Ks, ratios), got = last[1]
+    model = bench.random_model(cfg, device)
+    want = rcnn3d.inference(model, images, Ks, ratios, **rcnn3d.inference_kwargs(cfg))
+    for k, v in want.items():
+        assert torch.equal(got[k], v), k
+
+
+@pytest.mark.cuda
+def test_stage_chain_is_inference_on_the_card(device):
+    """`tools.profile_stages.stage_chain` at full width, bf16, bs 2: its
+    outputs equal `inference`'s exactly."""
+    from omni3d_tpu_torch.models import rcnn3d
+    from omni3d_tpu_torch.tools import bench, profile_stages
+
+    cfg = bench.config()
+    model = bench.random_model(cfg, device)
+    kw = rcnn3d.inference_kwargs(cfg)
+    _, images, Ks, ratios = bench.inputs(cfg, (2,), bench.IMG, device)[2]
+    out, _, _ = profile_stages.stage_chain(model, images, Ks, ratios, **kw)
+    want = rcnn3d.inference(model, images, Ks, ratios, **kw)
+    for k, v in want.items():
+        assert torch.equal(out[k], v), k

@@ -22,7 +22,10 @@ def test_port_modules_load_no_jax():
             "omni3d_tpu_torch.parallel", "omni3d_tpu_torch.parallel.dist",
             "omni3d_tpu_torch.data.jpeg", "omni3d_tpu_torch.utils.cxx",
             "omni3d_tpu_torch.utils.render", "omni3d_tpu_torch.vis.draw",
-            "omni3d_tpu_torch.vis.vis", "omni3d_tpu_torch.tools.demo"} <= set(mods)
+            "omni3d_tpu_torch.vis.vis", "omni3d_tpu_torch.tools.demo",
+            "omni3d_tpu_torch.utils.benchtime", "omni3d_tpu_torch.tools.bench",
+            "omni3d_tpu_torch.tools.bench_train", "omni3d_tpu_torch.tools.profile_stages",
+            "omni3d_tpu_torch.tools.profile_backbone"} <= set(mods)
     for p in (ROOT / "omni3d_tpu_torch").rglob("*.py"):
         text = p.read_text()
         assert '"native"' not in text and "native/" not in text, p
