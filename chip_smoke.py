@@ -6,8 +6,9 @@
 
 Phases (each raises on failure):
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
-     build both multilevel ROIAlign kernels (forward and backward) from
-     omni3d_tpu_torch/csrc, one nvcc per source started together;
+     build the port's kernel library from omni3d_tpu_torch/csrc (both
+     multilevel ROIAlign kernels, forward and backward, and the two NMS
+     kernels), one nvcc per source started together;
   2. the forward kernel vs its plain PyTorch version at the inference
      path's shapes (512 px pyramid, C = 256, B = 2, N = 1000 and 100 boxes),
      both routings, sampling_ratio 0 and 2, float32 and bfloat16, with times;
@@ -16,10 +17,12 @@ Phases (each raises on failure):
      batch 1 and 8, float32 with TF32 off and bfloat16, the 6D pose bias at
      the identity (`condition_pose_bias_`, as the training path does at
      random weights): exactly two forward and no backward launches per
-     call, output contract and sanity checks, ms per batch; then one float32
+     call and two launches of each NMS kernel (the RPN's and the per-class
+     NMS), output contract and sanity checks, ms per batch; then one float32
      call with the plain pooler (pooled features within phase 2's tolerance
      times max(1, largest pooled magnitude), scores within 1e-4, boxes
-     within 1e-2 px);
+     within 1e-2 px) and one with `nms_mask_plain` patched in (every output
+     equal to the kernels' call);
   4. the backward kernel vs the plain backward at the training path's
      shapes (B = 2, N = 640 per image), both routings, sampling_ratio 0 and
      2, float32 and bfloat16, the transpose identity, with times (the
@@ -28,7 +31,8 @@ Phases (each raises on failure):
      (B = 32, N = 640), and two backward calls there held bit-equal;
   5. training main path: full-width DLA34-FPN training steps at 512 px on
      synthetic batches (float32 TF32 off at batch 8, bfloat16 at batch 32):
-     exactly one forward and one backward launch per step, finite losses,
+     exactly one forward and one backward launch and one launch of each NMS
+     kernel per step, finite losses,
      parameters and BN statistics moving, ms/step, img/s, peak memory; a
      NaN batch the stabilizer skips; one float32 step with the plain pooler
      (forward and backward) against the kernels' step, compared with
@@ -138,8 +142,27 @@ Phases (each raises on failure):
      `inference`'s) and `tools.profile_backbone` at batch 32 (its blocks in
      order give `model.features` exactly), 2 rounds each: two forward
      launches per inference call and one forward and one backward per
-     training step, by the wrappers' counts and in the profiled rounds,
-     0 < mfu <= 1 for every record. It prints the `measurement:` JSON line.
+     training step, by the wrappers' counts and in the profiled rounds, two
+     launches of each NMS kernel per inference call and one per training
+     step, 0 < mfu <= 1 for every record. It prints the `measurement:` JSON
+     line;
+ 12. the NMS kernels (`csrc/nms.cu`: the suppression words, the greedy
+     walk) on the inputs `nms_mask` gets in bf16 inference with the bench's
+     model and draws (the RPN at batch 8 and 32, (B, 5, 1000) at t = 0.7;
+     the per-class NMS at batch 32, (32, 1024) class-shifted boxes at t =
+     0.5), the RPN's at the training top-k ((32, 5, 2000): `select_proposals`
+     again on the bs 32 call's inputs) and seeded clusters at those four
+     shapes (exact duplicates, score ties, zero-width and NaN boxes, padded
+     rows): keep masks bit-equal to `nms_mask_plain` on the card, the words
+     bit-equal to the CPU mirror (`ops.nms.suppression_words`) wherever the
+     kernel writes them, with the kernels', their plain versions', the
+     whole `nms_mask`'s and the plain fixpoint's ms (CUDA events) and the
+     bounds; then bf16 inference at batch 1 and 8 with `select_proposals`
+     and `fast_rcnn_inference` under `torch.cuda.set_sync_debug_mode("error")`
+     (no synchronising call inside them), and the synchronising calls of a
+     whole inference call counted (mode "warn") with the kernels and with
+     `nms_mask_plain` patched in, by source line. It prints the `nms:` JSON
+     line.
 The line before the last is the kernel summary as JSON; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -206,6 +229,26 @@ def cuda_ms(fn, iters=10, warmup=3):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+NMS_PER_INFERENCE = {"suppression_words": 2, "greedy_keep": 2}   # the RPN's and the per-class
+NMS_PER_STEP = {"suppression_words": 1, "greedy_keep": 1}        # the RPN's
+
+
+def _nms_counts():
+    from omni3d_tpu_torch.ops import nms_cuda
+    return {"suppression_words": nms_cuda.suppression_words.launches,
+            "greedy_keep": nms_cuda.greedy_keep.launches}
+
+
+def _reset_nms_counts():
+    from omni3d_tpu_torch.ops import nms_cuda
+    nms_cuda.suppression_words.launches = 0
+    nms_cuda.greedy_keep.launches = 0
+
+
+def _nms_diff(before, after):
+    return {k: after[k] - before[k] for k in after}
 
 
 def kernel_vs_plain(device):
@@ -442,6 +485,7 @@ def main_path(device, config="cubercnn_DLA34_FPN.yaml"):
     import torch
     import numpy as np
     from omni3d_tpu_torch.models import rcnn3d
+    from omni3d_tpu_torch.ops import nms as nms_ops
     from omni3d_tpu_torch.ops.roi_align_cuda import multilevel_roi_align
     from omni3d_tpu_torch.tools.synthetic import condition_pose_bias_
 
@@ -461,6 +505,7 @@ def main_path(device, config="cubercnn_DLA34_FPN.yaml"):
     timings, models = [], {}
     multilevel_roi_align.launches = 0          # counts of the main path's run only
     multilevel_roi_align.bwd_launches = 0
+    _reset_nms_counts()
     for dtype in (torch.float32, torch.bfloat16):
         model = rcnn3d.build_model(cfg, device=device, dtype=dtype, seed=0)
         condition_pose_bias_(model)
@@ -473,12 +518,15 @@ def main_path(device, config="cubercnn_DLA34_FPN.yaml"):
             ms = []
             for _ in range(iters):
                 before = multilevel_roi_align.launches
+                nms_before = _nms_counts()
                 t0 = time.perf_counter()
                 out = rcnn3d.inference(model, images, Ks, ratio, **kw)
                 torch.cuda.synchronize()
                 ms.append((time.perf_counter() - t0) * 1e3)
                 assert multilevel_roi_align.launches - before == 2, \
                     multilevel_roi_align.launches - before
+                nms_per_call = _nms_diff(nms_before, _nms_counts())
+                assert nms_per_call == NMS_PER_INFERENCE, nms_per_call
             check_outputs(out, bs, kw["topk"], C)
             med = statistics.median(ms)
             name = str(dtype).replace("torch.", "")
@@ -489,10 +537,13 @@ def main_path(device, config="cubercnn_DLA34_FPN.yaml"):
                   f"{bs * 1e3 / med:.1f} img/s; {int(out['valid'].sum())} detections, "
                   f"{int(out['proposal_valid'].sum())} valid proposals")
     launches = multilevel_roi_align.launches
+    nms_launches = _nms_counts()
     print(f"  kernel launches in the main path's run: {launches} forward, "
-          f"{multilevel_roi_align.bwd_launches} backward")
-    assert launches == 2 * 2 * sum(2 + iters for _, iters in BATCHES), launches
+          f"{multilevel_roi_align.bwd_launches} backward; NMS {nms_launches}")
+    n_calls = 2 * sum(2 + iters for _, iters in BATCHES)
+    assert launches == 2 * n_calls, launches
     assert multilevel_roi_align.bwd_launches == 0
+    assert nms_launches == {k: v * n_calls for k, v in NMS_PER_INFERENCE.items()}, nms_launches
 
     # the same f32 call with the plain pooler on the card
     def recorded(pool):
@@ -505,6 +556,7 @@ def main_path(device, config="cubercnn_DLA34_FPN.yaml"):
         return spy, seen
 
     images, Ks, ratio = inputs(PLAIN_BS)
+    nms_mask_kernel = nms_ops.nms_mask
     outs = {}
     for label, pool in (("kernel", multilevel_roi_align), ("plain", plain_pool)):
         spy, seen = recorded(pool)
@@ -530,8 +582,21 @@ def main_path(device, config="cubercnn_DLA34_FPN.yaml"):
     else:
         n = int((ko["valid"] != po["valid"]).sum() + (ko["classes"] != po["classes"]).sum())
         print(f"  final outputs: valid/classes differ in {n} detections (f32 ties flip)")
+
+    # the same f32 call with the plain NMS fixpoint: the keep masks are
+    # bit-equal, so every output must be equal too
+    nms_ops.nms_mask = nms_ops.nms_mask_plain
+    try:
+        plain_nms = rcnn3d.inference(models[torch.float32], images, Ks, ratio, **kw)
+    finally:
+        nms_ops.nms_mask = nms_mask_kernel
+    differ = [k for k, v in ko.items() if not torch.equal(v, plain_nms[k])]
+    print(f"  f32 bs={PLAIN_BS} with nms_mask_plain patched in: outputs equal to the "
+          f"kernels' call in {len(ko) - len(differ)} of {len(ko)} keys")
+    assert not differ, differ
     return timings, launches, dict(pooled_max_abs_err=pooled_err, pooled_max_abs=pooled_max,
-                                   tol=F32_ATOL * scale, final_outputs=errs)
+                                   tol=F32_ATOL * scale, final_outputs=errs,
+                                   nms_launches=nms_launches, plain_nms_outputs_equal=True)
 
 
 def plain_pool(features, boxes, strides, out_size, sampling_ratio, min_level=2,
@@ -585,6 +650,7 @@ def train_path(device):
     rows, kept = [], {}
     multilevel_roi_align.launches = 0          # counts of the main path's run only
     multilevel_roi_align.bwd_launches = 0
+    _reset_nms_counts()
     for dtype_name, bs in TRAIN_SETTINGS:
         dtype = getattr(torch, dtype_name)
         model, opt, step, batch = synthetic_trainer(cfg, dtype, bs, device, img=IMG)
@@ -597,6 +663,7 @@ def train_path(device):
         ms, logs_all = [], []
         for i in range(WARMUP_STEPS + TIMED_STEPS):
             before = (multilevel_roi_align.launches, multilevel_roi_align.bwd_launches)
+            nms_before = _nms_counts()
             t0 = time.perf_counter()
             logs = step(batch, gen)
             torch.cuda.synchronize()
@@ -604,6 +671,7 @@ def train_path(device):
                 ms.append((time.perf_counter() - t0) * 1e3)
             after = (multilevel_roi_align.launches, multilevel_roi_align.bwd_launches)
             assert (after[0] - before[0], after[1] - before[1]) == (1, 1), (before, after)
+            assert _nms_diff(nms_before, _nms_counts()) == NMS_PER_STEP, _nms_counts()
             logs_all.append(logs)
         peak = torch.cuda.max_memory_allocated()
         for logs in logs_all:
@@ -632,10 +700,11 @@ def train_path(device):
             del model, opt, step, batch
             torch.cuda.empty_cache()
     launches = {"forward": multilevel_roi_align.launches,
-                "backward": multilevel_roi_align.bwd_launches}
+                "backward": multilevel_roi_align.bwd_launches, **_nms_counts()}
     print(f"  kernel launches in the main path's run: {launches}")
     n_steps = len(TRAIN_SETTINGS) * (WARMUP_STEPS + TIMED_STEPS)
-    assert launches == {"forward": n_steps, "backward": n_steps}, launches
+    assert launches == {"forward": n_steps, "backward": n_steps,
+                        **{k: v * n_steps for k, v in NMS_PER_STEP.items()}}, launches
 
     # a NaN pixel: the stabilizer skips the step, nothing moves
     model, opt, step, batch = kept["model"], kept["opt"], kept["step"], kept["batch"]
@@ -2158,15 +2227,17 @@ STAGES_BS, BACKBONE_BS, PROFILE_ROUNDS, PROFILE_ITERS = 8, 32, 2, 5
 
 def _counted(run):
     """run() with the kernels' launch counts set to 0 just before it; returns
-    (its result, {"forward": n, "backward": n} launched during it)."""
+    (its result, {"forward": n, "backward": n, "suppression_words": n,
+    "greedy_keep": n} launched during it)."""
     import torch
     from omni3d_tpu_torch.ops.roi_align_cuda import multilevel_roi_align
     multilevel_roi_align.launches = 0
     multilevel_roi_align.bwd_launches = 0
+    _reset_nms_counts()
     out = run()
     torch.cuda.synchronize()
     return out, {"forward": multilevel_roi_align.launches,
-                 "backward": multilevel_roi_align.bwd_launches}
+                 "backward": multilevel_roi_align.bwd_launches, **_nms_counts()}
 
 
 def _check_mfu(what, mfu):
@@ -2209,6 +2280,8 @@ def measurement_path(device):
     rec = records["bench"]
     if rec["kernel_launches_per_call"] != {"forward": 2.0, "backward": 0.0}:
         raise AssertionError(f"bench: launches per call {rec['kernel_launches_per_call']}")
+    if rec["nms_launches_per_call"] != NMS_PER_INFERENCE:
+        raise AssertionError(f"bench: NMS launches per call {rec['nms_launches_per_call']}")
     for row in rec["batch_sizes"]:
         per_call = row["profile"]["roi_align_launches_per_call"]
         if per_call != {"roi_align_fwd": 2.0, "roi_align_bwd": 0.0}:
@@ -2243,6 +2316,8 @@ def measurement_path(device):
     rec = records["bench_train"]
     if rec["kernel_launches_per_step"] != {"forward": 1.0, "backward": 1.0}:
         raise AssertionError(f"bench_train: launches per step {rec['kernel_launches_per_step']}")
+    if rec["nms_launches_per_step"] != NMS_PER_STEP:
+        raise AssertionError(f"bench_train: NMS launches per step {rec['nms_launches_per_step']}")
     per_step = rec["profile"]["roi_align_launches_per_call"]
     if per_step != {"roi_align_fwd": 1.0, "roi_align_bwd": 1.0}:
         raise AssertionError(f"bench_train: profiled launches per step {per_step}")
@@ -2272,8 +2347,291 @@ def measurement_path(device):
     for name, n in launches.items():
         if n["forward"] == 0:
             raise AssertionError(f"{name}: the forward kernel was not launched")
+        if 0 in (n["suppression_words"], n["greedy_keep"]):
+            raise AssertionError(f"{name}: an NMS kernel was not launched: {n}")
     print(f"  phase 11 took {time.perf_counter() - t0:.1f} s; kernel launches by tool {launches}")
     return records, launches, pooler_err
+
+
+# phase 12: the NMS kernels
+NMS_REAL_BS = (8, 32)            # bench batches whose nms_mask inputs are captured
+NMS_SYNC_BS = (1, 8)             # bf16 inference calls checked for host syncs
+NMS_CPU_CHUNK = 16               # rows per chunk of the CPU mirror
+# the seeded cases: (label, shape, IoU threshold, classes for the offsets)
+NMS_SEEDED = (("rpn test bs 8", (8, 5, 1000), 0.7, 0), ("rpn test bs 32", (32, 5, 1000), 0.7, 0),
+              ("rpn train bs 32", (32, 5, 2000), 0.7, 0), ("per-class bs 32", (32, 1024), 0.5, 50))
+IOU_OPS = 13                     # float operations per IoU test (4 max / min, 2 sub,
+                                 # 2 clamp, mul, add, sub, div, the compare)
+
+
+def _nms_clusters(shape, seed, classes=0):
+    """Seeded NMS inputs (boxes (..., N, 4), scores (..., N), valid): boxes
+    in clusters, ~10% exact duplicates, ~5% of zero width, scores on 17
+    levels (exact score ties), ~10% invalid rows, a NaN box per row and the
+    last eighth of every row padding (score NEG_INF, invalid), as
+    `select_proposals` pads its levels; with `classes` > 0 shifted by a
+    random class as `batched_nms_indices` shifts them."""
+    import numpy as np
+    import torch
+    from omni3d_tpu_torch.ops import nms as nms_ops
+    rng = np.random.default_rng(seed)
+    n = shape[-1]
+    centers = rng.uniform(20, 500, shape[:-1] + (max(1, n // 16), 2))
+    pick = rng.integers(0, centers.shape[-2], shape)
+    c = np.take_along_axis(centers, pick[..., None], -2) + rng.normal(0, 6, shape + (2,))
+    wh = rng.uniform(8, 120, shape + (2,))
+    boxes = np.concatenate([c - wh / 2, c + wh / 2], -1).astype(np.float32)
+    dup = rng.uniform(size=shape) < 0.1
+    boxes[dup] = np.repeat(boxes[..., :1, :], n, -2)[dup]
+    zero = rng.uniform(size=shape) < 0.05
+    boxes[..., 2][zero] = boxes[..., 0][zero]
+    boxes[..., n // 2, 1] = np.nan
+    scores = (np.round(rng.uniform(0, 1, shape) * 16) / 16).astype(np.float32)
+    valid = rng.uniform(size=shape) > 0.1
+    pad = n - n // 8
+    boxes[..., pad:, :] = 0.0
+    scores[..., pad:] = nms_ops.NEG_INF
+    valid[..., pad:] = False
+    boxes, scores, valid = map(torch.from_numpy, (boxes, scores, valid))
+    if classes:
+        boxes = nms_ops._offset_by_class(boxes, torch.from_numpy(rng.integers(0, classes, shape)))
+    return boxes, scores, valid
+
+
+def _nms_real_inputs(device):
+    """`nms_mask`'s arguments (boxes, scores, threshold, valid) recorded in
+    bf16 inference (the bench's model and draws) at NMS_REAL_BS, and the
+    RPN's at the training pre-NMS top-k: `select_proposals` again on the
+    bs 32 call's own inputs with PRE_NMS_TOPK_TRAIN / POST_NMS_TOPK_TRAIN."""
+    import torch
+    from omni3d_tpu_torch.models import rcnn3d, rpn
+    from omni3d_tpu_torch.ops import nms as nms_ops
+    from omni3d_tpu_torch.tools import bench
+    from omni3d_tpu_torch.tools.profile_stages import recorded
+
+    cfg = bench.config()
+    kw = rcnn3d.inference_kwargs(cfg)
+    model = bench.random_model(cfg, device)
+    data = bench.inputs(cfg, NMS_REAL_BS, bench.IMG, device)
+    cases = {}
+    with torch.no_grad():
+        for bs in NMS_REAL_BS:
+            _, images, Ks, ratios = data[bs]
+            with recorded(nms_ops, "nms_mask") as calls, \
+                    recorded(rcnn3d, "select_proposals") as sel:
+                rcnn3d.inference(model, images, Ks, ratios, **kw)
+            (rpn_call, _, _), (cls_call, _, _) = calls
+            cases[f"rpn test bs {bs}"] = rpn_call
+            if bs == NMS_REAL_BS[-1]:
+                cases[f"per-class bs {bs}"] = cls_call
+                args = sel[0][0]
+                rpn_cfg = cfg.MODEL.RPN
+                with recorded(nms_ops, "nms_mask") as calls:
+                    rpn.select_proposals(*args[:4], rpn_cfg.PRE_NMS_TOPK_TRAIN,
+                                         rpn_cfg.POST_NMS_TOPK_TRAIN, args[6])
+                cases[f"rpn train bs {bs}"] = calls[0][0]
+    del model
+    torch.cuda.empty_cache()
+    return cases
+
+
+def _nms_case(label, boxes, scores, thresh, valid):
+    """One NMS input on the card: the keep mask of `nms_mask` (the kernels)
+    against `nms_mask_plain`, the words against the CPU mirror where the
+    kernel writes them, the times of both kernels and their plain versions
+    (CUDA events, median of 10; the greedy mirror, a loop of N steps, 3),
+    of `nms_mask` whole and of the plain fixpoint, and each kernel's bound
+    for these inputs."""
+    import torch
+    from omni3d_tpu_torch.ops import nms as nms_ops
+    from omni3d_tpu_torch.ops import nms_cuda
+    from omni3d_tpu_torch.utils.benchtime import bound
+
+    n = scores.shape[-1]
+    R = scores.numel() // n
+    W = -(-n // nms_cuda.TILE)
+    got = nms_ops.nms_mask(boxes, scores, thresh, valid)
+    want = nms_ops.nms_mask_plain(boxes, scores, thresh, valid)
+    differ = int((got != want).sum())
+    boxes_s, valid_s, order = nms_ops._sorted(boxes, scores, valid)
+    boxes_s, valid_s, order = boxes_s.reshape(R, n, 4), valid_s.reshape(R, n), order.reshape(R, n)
+    words = nms_cuda.suppression_words(boxes_s, valid_s, thresh)
+    keep_s = nms_cuda.greedy_keep(words, valid_s)
+    torch.cuda.synchronize()
+    tile_of = torch.arange(n) // nms_cuda.TILE
+    defined = torch.arange(W)[None, :] >= tile_of[:, None]
+    words_cpu, boxes_cpu, valid_cpu = words.cpu(), boxes_s.cpu(), valid_s.cpu()
+    word_differ = 0
+    for r0 in range(0, R, NMS_CPU_CHUNK):
+        rows = slice(r0, r0 + NMS_CPU_CHUNK)
+        mirror = nms_ops.suppression_words(boxes_cpu[rows], valid_cpu[rows], thresh)
+        word_differ += int((words_cpu[rows] != mirror)[:, defined].sum())
+    del words_cpu, mirror
+
+    row = dict(case=label, shape=list(scores.shape), threshold=thresh,
+               valid=int(valid_s.sum()), kept=int(got.sum()), differing_keep=differ,
+               differing_words=word_differ, words_compared=R * int(defined.sum()))
+    row["words_ms"] = cuda_ms(lambda: nms_cuda.suppression_words(boxes_s, valid_s, thresh))
+    row["greedy_ms"] = cuda_ms(lambda: nms_cuda.greedy_keep(words, valid_s, order))
+    row["nms_mask_ms"] = cuda_ms(lambda: nms_ops.nms_mask(boxes, scores, thresh, valid))
+    row["fixpoint_ms"] = cuda_ms(lambda: nms_ops.nms_mask_plain(boxes, scores, thresh, valid))
+    row["words_plain_ms"] = cuda_ms(lambda: nms_ops.suppression_words(boxes_s, valid_s, thresh))
+    row["greedy_plain_ms"] = cuda_ms(lambda: nms_ops.greedy_keep_from_words(words, valid_s),
+                                     iters=3, warmup=1)
+    torch.cuda.empty_cache()
+    # bounds for these inputs: (a) reads the boxes and validity, writes the
+    # words of tiles ct >= rt, and tests the pairs j > i of valid rows i;
+    # (b) reads validity, the sort order, the diagonal words and the later
+    # words of the kept boxes, writes the keep mask
+    per_row_words = int((W - tile_of).sum())
+    pairs = int(((n - 1 - torch.arange(n))[None, :] * valid_cpu).sum())
+    later = int(((W - 1 - tile_of)[None, :] * keep_s.cpu()).sum())
+    row["words_bound_ms"], row["words_bound_by"] = bound(
+        R * n * (16 + 1) + R * per_row_words * 8, IOU_OPS * pairs)
+    row["greedy_bound_ms"], row["greedy_bound_by"] = bound(
+        R * n * (1 + 8 + 8 + 1) + later * 8, 0)
+    print(f"  {label:16s} {tuple(scores.shape)} t={thresh}: kept {row['kept']} of "
+          f"{row['valid']} valid; keep vs nms_mask_plain differing {differ}, words vs the "
+          f"CPU mirror differing {word_differ} of {row['words_compared']}; words "
+          f"{row['words_ms']:.4f} ms (plain {row['words_plain_ms']:.3f}, bound "
+          f"{row['words_bound_ms']:.4f} by {row['words_bound_by']}), greedy "
+          f"{row['greedy_ms']:.4f} ms (plain {row['greedy_plain_ms']:.1f}, bound "
+          f"{row['greedy_bound_ms']:.4f}); nms_mask {row['nms_mask_ms']:.3f} ms, the plain "
+          f"fixpoint {row['fixpoint_ms']:.3f} ms")
+    if differ or word_differ:
+        raise AssertionError(f"NMS kernels disagree with the plain version: {row}")
+    return row
+
+
+def _sync_count(fn):
+    """fn() under `torch.cuda.set_sync_debug_mode("warn")`: {the Python
+    line that made it: count} of the synchronising CUDA calls it made."""
+    import warnings
+    import torch
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    where = {}
+    for w in caught:
+        if "called a synchronizing CUDA operation" in str(w.message):
+            key = f"{os.path.relpath(w.filename, ROOT)}:{w.lineno}"
+            where[key] = where.get(key, 0) + 1
+    return where
+
+
+def _nms_sync_checks(device):
+    """bf16 inference at NMS_SYNC_BS with `select_proposals` and
+    `fast_rcnn_inference` run under `set_sync_debug_mode("error")` (a
+    synchronising call inside them raises), then the synchronising calls of
+    one whole `inference` call counted, with the kernels and with
+    `nms_mask_plain` patched in (the parent's NMS)."""
+    import torch
+    from omni3d_tpu_torch.models import rcnn3d
+    from omni3d_tpu_torch.ops import nms as nms_ops
+    from omni3d_tpu_torch.tools import bench
+
+    cfg = bench.config()
+    kw = rcnn3d.inference_kwargs(cfg)
+    model = bench.random_model(cfg, device)
+    data = bench.inputs(cfg, NMS_SYNC_BS, bench.IMG, device)
+
+    def strict(fn):
+        def call(*args, **kwargs):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        return call
+
+    result = {}
+    originals = rcnn3d.select_proposals, rcnn3d.fast_rcnn_inference
+    kernel_nms = nms_ops.nms_mask
+    with torch.no_grad():
+        for bs in NMS_SYNC_BS:
+            _, images, Ks, ratios = data[bs]
+            call = lambda: rcnn3d.inference(model, images, Ks, ratios, **kw)  # noqa: E731
+            call()
+            torch.cuda.synchronize()
+            rcnn3d.select_proposals, rcnn3d.fast_rcnn_inference = map(strict, originals)
+            try:
+                call()
+                torch.cuda.synchronize()
+            finally:
+                rcnn3d.select_proposals, rcnn3d.fast_rcnn_inference = originals
+            after = _sync_count(call)
+            nms_ops.nms_mask = nms_ops.nms_mask_plain
+            try:
+                before = _sync_count(call)
+            finally:
+                nms_ops.nms_mask = kernel_nms
+            result[f"bs{bs}"] = dict(
+                select_and_class_nms_under_error_mode="no synchronising call",
+                syncs_per_call_kernels=sum(after.values()), where_kernels=after,
+                syncs_per_call_plain_fixpoint=sum(before.values()), where_plain_fixpoint=before)
+            print(f"  bf16 bs={bs}: select_proposals and fast_rcnn_inference under "
+                  f"set_sync_debug_mode('error'): no synchronising call; syncs per inference "
+                  f"call {sum(after.values())} with the kernels {after}, "
+                  f"{sum(before.values())} with the plain fixpoint {before}")
+    del model
+    torch.cuda.empty_cache()
+    return result
+
+
+NMS_KERNELS = {
+    "suppression_words": ("nms_suppression_words", "words", "differing_words"),
+    "greedy_keep": ("nms_greedy_keep", "greedy", "differing_keep"),
+}
+NMS_TIMED_CASE = "rpn test bs 32"
+
+
+def nms_kernel_entry(kernel, rows, launches_by_path):
+    """The kernel line's entry of an NMS kernel: launches in the main
+    paths' runs (phases 3, 5 and 11), times and bound at the recorded RPN
+    input of the bench's bs 32 batch, and every case's."""
+    name, key, differ = NMS_KERNELS[kernel]
+    main = next(r for r in rows if r["case"] == NMS_TIMED_CASE)
+    return {
+        "name": name, "route": "cuda", "source": "omni3d_tpu_torch/csrc/nms.cu",
+        "replaces": "omni3d_tpu/ops/nms.py:55",
+        "also_replaces": "omni3d_tpu/ops/nms.py:38 (_fixpoint_keep's lax.while_loop)",
+        "launches": sum(launches_by_path.values()), "launches_by_path": launches_by_path,
+        "max_abs_err": float(max(r[differ] for r in rows)),
+        "ms": main[f"{key}_ms"], "plain_ms": main[f"{key}_plain_ms"],
+        "bound_ms": main[f"{key}_bound_ms"], "bound_by": main[f"{key}_bound_by"],
+        "library_ms": None,
+        "timed_case": f"{NMS_TIMED_CASE}: {main['shape']} recorded in bf16 inference, "
+                      f"t {main['threshold']} (the kernel alone on its inputs)",
+        "cases": [{k: r[k] for k in ("case", "source", "shape", f"{key}_ms", f"{key}_plain_ms",
+                                      f"{key}_bound_ms", f"{key}_bound_by", differ,
+                                      "nms_mask_ms", "fixpoint_ms")} for r in rows],
+    }
+
+
+def nms_path(device):
+    """Phase 12: the NMS kernels against `nms_mask_plain` and the CPU mirror
+    at the main path's shapes on two sources of boxes (recorded from the
+    bench's batches, and seeded clusters), with times and bounds; then the
+    host-sync checks."""
+    t0 = time.perf_counter()
+    cases = _nms_real_inputs(device)
+    rows = []
+    for label, (boxes, scores, thresh, valid) in cases.items():
+        rows.append(dict(_nms_case(label, boxes, scores, thresh, valid),
+                         source="recorded (bench model, bf16 inference)"))
+    del cases
+    for i, (label, shape, thresh, classes) in enumerate(NMS_SEEDED):
+        boxes, scores, valid = (x.to(device) for x in _nms_clusters(shape, i, classes))
+        rows.append(dict(_nms_case(f"seeded {label}", boxes, scores, thresh, valid),
+                         source="seeded clusters"))
+    syncs = _nms_sync_checks(device)
+    print(f"  phase 12 took {time.perf_counter() - t0:.1f} s")
+    return dict(cases=rows, host_syncs=syncs)
 
 
 def main():
@@ -2293,9 +2651,9 @@ def main():
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}; TF32 off (cuDNN and matmul)")
 
-    from omni3d_tpu_torch.ops import roi_align_cuda
-    print("[1/11] build")
-    path, secs, log = roi_align_cuda.build()
+    from omni3d_tpu_torch.utils import cuda_build
+    print("[1/12] build")
+    path, secs, log = cuda_build.build()
     print(f"  {os.path.relpath(path, ROOT)} built in {secs:.1f} s")
     for line in log.splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
@@ -2305,41 +2663,45 @@ def main():
         gate_probe(device, int(sys.argv[2]))
         return
 
-    print("[2/11] forward kernel vs plain PyTorch version")
+    print("[2/12] forward kernel vs plain PyTorch version")
     main_case, worst = kernel_vs_plain(device)
 
-    print("[3/11] inference main path: DLA34-FPN inference at 512 px")
-    timings, launches, _ = main_path(device)
+    print("[3/12] inference main path: DLA34-FPN inference at 512 px")
+    timings, launches, inference_check = main_path(device)
 
-    print("[4/11] backward kernel vs plain PyTorch version")
+    print("[4/12] backward kernel vs plain PyTorch version")
     worst_bwd = bwd_vs_plain(device)
     at_train = time_kernels_at_train_shape(device)
 
-    print("[5/11] training main path: DLA34-FPN training steps at 512 px")
+    print("[5/12] training main path: DLA34-FPN training steps at 512 px")
     train_rows, train_launches, plain_cmp = train_path(device)
 
     with tempfile.TemporaryDirectory() as tmp:
-        print("[6/11] training entry point: tools.train_net on a synthetic Omni3D-format dataset")
+        print("[6/12] training entry point: tools.train_net on a synthetic Omni3D-format dataset")
         entry, entry_launches, weights = entry_point_path(device, tmp)
 
-        print("[7/11] evaluation: tools.train_net --eval-only on synthetic test splits")
+        print("[7/12] evaluation: tools.train_net --eval-only on synthetic test splits")
         evaluation, eval_launches = evaluation_path(device, tmp, weights)
 
-        print("[8/11] data parallelism: DDP over NCCL at world size 1, two ranks on the card "
+        print("[8/12] data parallelism: DDP over NCCL at world size 1, two ranks on the card "
               "over gloo, --eval-only at world size 2")
         distributed, ddp_launches = distributed_path(device, tmp, weights)
 
-        print("[9/11] other backbones at full width: ResNet34-FPN as phases 3 and 5-7 drive "
+        print("[9/12] other backbones at full width: ResNet34-FPN as phases 3 and 5-7 drive "
               "DLA-34, then every other builder and DLA variant")
         backbones, bb_launches = backbones_path(device, tmp, timings, train_rows)
 
-        print("[10/11] the demo: JPEG fixtures, tools.demo at full width, render_depth_map on "
+        print("[10/12] the demo: JPEG fixtures, tools.demo at full width, render_depth_map on "
               "the card, train_net with VIS_PERIOD and TEST.EVAL_PERIOD")
         demo, demo_launches = demo_path(device, tmp, weights)
 
-    print("[11/11] the measurement tools: tools.bench at bs 1 / 8 / 32, tools.bench_train at "
+    print("[11/12] the measurement tools: tools.bench at bs 1 / 8 / 32, tools.bench_train at "
           "bf16 bs 32, tools.profile_stages, tools.profile_backbone")
     measurement, tool_launches, tools_pooler_err = measurement_path(device)
+
+    print("[12/12] the NMS kernels vs plain PyTorch version; host syncs of the proposal and "
+          "detection NMS")
+    nms = nms_path(device)
 
     bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "omni3d_tpu")]
     assert not bad, bad
@@ -2351,6 +2713,7 @@ def main():
     print("backbones: " + json.dumps(backbones))
     print("demo: " + json.dumps(demo))
     print("measurement: " + json.dumps(measurement))
+    print("nms: " + json.dumps(nms))
     # phase 9's kernel-vs-plain checks on ResNet-34's own pooler inputs (its
     # random-weight maps are larger than DLA-34's, so are the absolute errors)
     bb_pooler = backbones["resnet34"]["training"]["first_pooler_call_vs_plain"]
@@ -2415,7 +2778,11 @@ def main():
         "bit_reproducible": True,
         "backbones_vs_plain": {"resnet34_bf16_train_step": {
             k: bb_pooler[k] for k in ("bwd_max_abs_err", "bwd_f32_tol")}},
-    }]}))
+    }] + [nms_kernel_entry(kernel, nms["cases"], {
+        "inference": inference_check["nms_launches"][kernel],
+        "training": train_launches[kernel],
+        **{k: n[kernel] for k, n in tool_launches.items()}})
+        for kernel in ("suppression_words", "greedy_keep")]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

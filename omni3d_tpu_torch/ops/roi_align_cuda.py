@@ -12,10 +12,9 @@ barrier after the bands are built. The backward is output-stationary: a
 block owns a tile of one image-level's gradient, walks the boxes that touch
 it and writes the tile once, with no atomics, so it is bit-reproducible run
 to run and its outputs need no zeroing and no cast. The kernels are
-compiled with nvcc for sm_90a at first use, one nvcc per source started
-together, linked into one shared library with a plain C interface, cached
-under `_build/` by a hash of the sources, the header and the flags, and
-loaded with ctypes.
+compiled with nvcc for sm_90a at first use into the port's one kernel
+library (`utils/cuda_build.py`: one nvcc per source started together, a
+plain C interface loaded with ctypes).
 
 `multilevel_roi_align` routes each box to a level in torch, then pools
 through `MultilevelROIAlign`, a `torch.autograd.Function`: tensors on the
@@ -27,26 +26,13 @@ from one to the other. `multilevel_roi_align.launches` and
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import pathlib
-import shutil
-import subprocess
-import time
 
 import torch
 
+from ..utils.cuda_build import library
 from .roi_align import (ADAPTIVE_SMAX, multilevel_roi_align_plain,
                         multilevel_roi_align_plain_bwd, route_levels)
 
-_PKG = pathlib.Path(__file__).resolve().parents[1]
-CSRC = _PKG / "csrc"
-SOURCES = (CSRC / "roi_align_fwd.cu", CSRC / "roi_align_bwd.cu")
-HEADERS = (CSRC / "roi_align_common.cuh",)
-BUILD_DIR = _PKG / "_build"
-ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-Xcompiler", "-fPIC")
-NVCC_FLAGS = ARCH_FLAGS + ("-Xptxas", "-v")
 MAX_LEVELS = 8
 MAX_BINS = 8                     # out_size bound of the kernels (kMaxBins)
 _VEC = {torch.float32: 4, torch.bfloat16: 8}   # channels per 16-byte vector
@@ -54,56 +40,10 @@ _VEC = {torch.float32: 4, torch.bfloat16: 8}   # channels per 16-byte vector
 _lib = None
 
 
-def _nvcc() -> str:
-    for root in (os.environ.get("CUDA_HOME"), os.environ.get("CUDA_PATH"), "/usr/local/cuda"):
-        if root and os.path.isfile(os.path.join(root, "bin", "nvcc")):
-            return os.path.join(root, "bin", "nvcc")
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit")
-    return found
-
-
-def build() -> tuple[pathlib.Path, float, str]:
-    """Compile the kernel library unless a build of these sources, header and
-    flags exists: one nvcc per source, started together, then one link.
-    Returns (library path, build seconds, compiler output)."""
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for f in SOURCES + HEADERS:
-        digest.update(f.name.encode() + f.read_bytes())
-    lib = BUILD_DIR / f"roi_align-{digest.hexdigest()[:16]}.so"
-    if lib.exists():
-        return lib, 0.0, ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tag = f"{lib.stem}.{os.getpid()}"
-    objs = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in SOURCES]
-    nvcc = _nvcc()
-    t0 = time.perf_counter()
-    try:
-        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(src)],
-                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-                 for src, o in zip(SOURCES, objs)]
-        log = "".join(p.communicate()[0] for p in procs)
-        if any(p.returncode for p in procs):
-            raise RuntimeError(f"nvcc failed:\n{log}")
-        tmp = lib.with_name(f"{tag}.so.tmp")
-        link = subprocess.run([nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)],
-                              capture_output=True, text=True, check=False)
-        if link.returncode != 0:
-            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n"
-                               f"{link.stdout}{link.stderr}")
-    finally:
-        for o in objs:
-            o.unlink(missing_ok=True)
-    os.replace(tmp, lib)   # atomic: a concurrent process never loads a partial file
-    return lib, time.perf_counter() - t0, log
-
-
 def _library():
     global _lib
     if _lib is None:
-        path, _, _ = build()
-        lib = ctypes.CDLL(str(path))
+        lib = library()
         p, i = ctypes.c_void_p, ctypes.c_int
         ints = ctypes.POINTER(i)
         floats = ctypes.POINTER(ctypes.c_float)

@@ -22,7 +22,9 @@ of --iters back-to-back calls per batch size, the batch sizes in turns, on
 the host clock ended by one synchronise. Per batch size it reports the
 median / min / max ms per batch and img/s, the first call's ms, one
 profiled round (device busy ms per call, and its share of the median ms;
-kernels per call; the ROIAlign kernels' launches per call), the model FLOPs per image and `mfu`, the peak memory,
+kernels per call; the ROIAlign kernels' launches per call), the ROIAlign
+and NMS kernels' launches per call by their wrappers' counts, the model
+FLOPs per image and `mfu`, the peak memory,
 and the mean valid proposals and detections per image (random weights set
 the NMS depth and the detection count, so the work done is shown).
 
@@ -90,8 +92,18 @@ def git_commit():
 
 
 def launch_counts():
+    """The kernels' launch counts: ROIAlign forward, backward, then the NMS
+    words and greedy kernels."""
+    from ..ops import nms_cuda
     from ..ops.roi_align_cuda import multilevel_roi_align
-    return multilevel_roi_align.launches, multilevel_roi_align.bwd_launches
+    return (multilevel_roi_align.launches, multilevel_roi_align.bwd_launches,
+            nms_cuda.suppression_words.launches, nms_cuda.greedy_keep.launches)
+
+
+def nms_launches(before, after, n: int) -> dict:
+    """The NMS kernels' launches per call between two `launch_counts()`."""
+    return {"suppression_words": (after[2] - before[2]) / n,
+            "greedy_keep": (after[3] - before[3]) / n}
 
 
 def peak_mem_gib(device):
@@ -159,6 +171,7 @@ def run(cfg, batch_sizes=BATCH_SIZES, image: int = IMG, rounds: int = 5, iters: 
     record = {"dtype": dtype, "image": image, "rounds": rounds, "iters": iters,
               "device": str(device), **bt.card_fields(device), "inference_kwargs": kw,
               "kernel_launches_per_call": kernel_launches,
+              "nms_launches_per_call": nms_launches(before, after, n_calls * len(batch_sizes)),
               "batch_sizes": [rows[bs] for bs in batch_sizes]}
     for bs in batch_sizes:
         r = rows[bs]

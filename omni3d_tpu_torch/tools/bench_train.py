@@ -14,7 +14,8 @@ then one profiled round. It reports the median / min / max ms per step and
 img/s, `total_loss` at every step (all finite, or it raises), the model
 FLOPs per step (the convolutions and linear layers, forward and backward:
 `utils.benchtime.model_flops`) and `mfu`, the peak memory, and the ROIAlign
-kernels' launches per step (1 forward + 1 backward). Its last line is
+kernels' launches per step (1 forward + 1 backward) and the NMS kernels'
+(1 + 1, the RPN's). Its last line is
 `bench.py`'s JSON keys (`metric`, `value` in img/s, `unit`) with the card and
 its power limit; --out writes the full record with the git commit.
 """
@@ -77,6 +78,7 @@ def run(cfg, bs: int = 8, dtype=torch.bfloat16, rounds: int = 5, iters: int = 10
         "peak_mem_gib": bench.peak_mem_gib(device),
         "kernel_launches_per_step": {"forward": (after[0] - before[0]) / n,
                                      "backward": (after[1] - before[1]) / n},
+        "nms_launches_per_step": bench.nms_launches(before, after, n),
         "profile": profile, "device_busy_share": bt.busy_share(profile, t["median_ms"]),
         "total_loss": losses, "first_step_losses": first,
     }

@@ -510,3 +510,112 @@ def test_stage_chain_is_inference_on_the_card(device):
     want = rcnn3d.inference(model, images, Ks, ratios, **kw)
     for k, v in want.items():
         assert torch.equal(out[k], v), k
+
+
+def _nms_rows(shape, seed=0, spread=400.0):
+    """Seeded score-clustered rows (..., N): boxes in clusters, ~10% exact
+    duplicates, zero-width boxes, scores on 17 levels (exact ties), ~10%
+    invalid rows and a NaN box per row."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    n = shape[-1]
+    centers = rng.uniform(20, spread, shape[:-1] + (max(1, n // 8), 2))
+    pick = rng.integers(0, centers.shape[-2], shape)
+    c = np.take_along_axis(centers, pick[..., None], -2) + rng.normal(0, 6, shape + (2,))
+    wh = rng.uniform(8, 80, shape + (2,))
+    boxes = np.concatenate([c - wh / 2, c + wh / 2], -1).astype(np.float32)
+    dup = rng.uniform(size=shape) < 0.1
+    boxes[dup] = boxes[..., :1, :].repeat(n, -2)[dup]
+    zero = rng.uniform(size=shape) < 0.05
+    boxes[..., 2][zero] = boxes[..., 0][zero]
+    boxes[..., n // 2, 1] = np.nan
+    scores = (np.round(rng.uniform(0, 1, shape) * 16) / 16).astype(np.float32)
+    valid = rng.uniform(size=shape) > 0.1
+    return torch.from_numpy(boxes), torch.from_numpy(scores), torch.from_numpy(valid)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,thresh,classes", [((2, 5, 1000), 0.7, False),
+                                                  ((1, 5, 2000), 0.7, False),
+                                                  ((3, 1024), 0.5, True),
+                                                  ((4, 65), 0.5, False)],
+                         ids=["rpn-test", "rpn-train", "per-class", "65"])
+def test_nms_kernels_match_plain(device, shape, thresh, classes):
+    """The keep mask of `nms_mask` on the card (the two kernels) equals
+    `nms_mask_plain` on the card bit for bit; the words equal the CPU
+    mirror where the kernel writes them; the greedy kernel on the mirror's
+    words gives the mirror's walk; one launch of each kernel per call."""
+    from omni3d_tpu_torch.ops import nms as tnms
+    from omni3d_tpu_torch.ops import nms_cuda
+
+    boxes, scores, valid = _nms_rows(shape)
+    if classes:
+        idx = torch.randint(0, 50, shape, generator=torch.Generator().manual_seed(1))
+        boxes = tnms._offset_by_class(boxes, idx)
+    b, s, v = boxes.to(device), scores.to(device), valid.to(device)
+    before = (nms_cuda.suppression_words.launches, nms_cuda.greedy_keep.launches)
+    got = tnms.nms_mask(b, s, thresh, v)
+    torch.cuda.synchronize()
+    assert (nms_cuda.suppression_words.launches - before[0],
+            nms_cuda.greedy_keep.launches - before[1]) == (1, 1)
+    want = tnms.nms_mask_plain(b, s, thresh, v)
+    assert got.dtype == torch.bool and torch.equal(got, want)
+    assert torch.equal(got.cpu(), tnms.nms_mask_plain(boxes, scores, thresh, valid))
+    assert 0 < int(got.sum()) < int(valid.sum())
+
+    n = shape[-1]
+    boxes_s, valid_s, _ = tnms._sorted(boxes, scores, valid)
+    rows = (-1, n)
+    words = nms_cuda.suppression_words(boxes_s.reshape(*rows, 4).to(device),
+                                       valid_s.reshape(rows).to(device), thresh).cpu()
+    mirror = tnms.suppression_words(boxes_s.reshape(*rows, 4), valid_s.reshape(rows), thresh)
+    defined = (torch.arange(words.shape[-1])[None, :] >= torch.arange(n)[:, None] // 64)
+    assert torch.equal(words[:, defined], mirror[:, defined])
+    keep_s = nms_cuda.greedy_keep(mirror.to(device), valid_s.reshape(rows).to(device)).cpu()
+    assert torch.equal(keep_s, tnms.greedy_keep_from_words(mirror, valid_s.reshape(rows)))
+
+
+@pytest.mark.cuda
+def test_nms_wrappers_refuse_what_the_kernels_do_not_take(device):
+    from omni3d_tpu_torch.ops import nms as tnms
+    from omni3d_tpu_torch.ops import nms_cuda
+
+    boxes, scores, valid = (x.to(device) for x in _nms_rows((2, 100)))
+    with pytest.raises(ValueError):
+        tnms.nms_mask(boxes.double(), scores, 0.7, valid)
+    with pytest.raises(ValueError):
+        nms_cuda.suppression_words(boxes.double(), valid, 0.7)
+    with pytest.raises(ValueError):   # not contiguous
+        nms_cuda.suppression_words(boxes.transpose(0, 1).contiguous().transpose(0, 1),
+                                   valid, 0.7)
+    with pytest.raises(ValueError):   # validity on the CPU, boxes on the card
+        nms_cuda.suppression_words(boxes, valid.cpu(), 0.7)
+    with pytest.raises(ValueError):
+        nms_cuda.suppression_words(boxes.cpu(), valid.cpu(), 0.7)
+    words = nms_cuda.suppression_words(boxes, valid, 0.7)
+    with pytest.raises(ValueError):
+        nms_cuda.greedy_keep(words.float(), valid)
+    with pytest.raises(ValueError):
+        nms_cuda.greedy_keep(words, valid, torch.zeros(2, 100, dtype=torch.int32, device=device))
+    with pytest.raises(ValueError):
+        nms_cuda.greedy_keep(words[:, :50], valid)
+
+
+@pytest.mark.cuda
+def test_nms_makes_no_host_sync(device):
+    """`nms_mask` and `batched_nms_indices` on the card issue no
+    synchronising CUDA call (`torch.cuda.set_sync_debug_mode("error")`
+    raises on one); the plain fixpoint does, once per iteration."""
+    from omni3d_tpu_torch.ops import nms as tnms
+
+    boxes, scores, valid = (x.to(device) for x in _nms_rows((2, 5, 1000)))
+    classes = torch.arange(1000, device=device).remainder(7).expand(2, 5, 1000)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        tnms.nms_mask(boxes, scores, 0.7, valid)
+        tnms.batched_nms_indices(boxes, scores, classes, 0.5, 100, valid)
+        with pytest.raises(RuntimeError):
+            tnms.nms_mask_plain(boxes, scores, 0.7, valid)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
