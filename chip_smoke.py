@@ -147,22 +147,27 @@ Phases (each raises on failure):
      step, 0 < mfu <= 1 for every record. It prints the `measurement:` JSON
      line;
  12. the NMS kernels (`csrc/nms.cu`: the suppression words, the greedy
-     walk) on the inputs `nms_mask` gets in bf16 inference with the bench's
-     model and draws (the RPN at batch 8 and 32, (B, 5, 1000) at t = 0.7;
-     the per-class NMS at batch 32, (32, 1024) class-shifted boxes at t =
-     0.5), the RPN's at the training top-k ((32, 5, 2000): `select_proposals`
-     again on the bs 32 call's inputs) and seeded clusters at those four
-     shapes (exact duplicates, score ties, zero-width and NaN boxes, padded
-     rows): keep masks bit-equal to `nms_mask_plain` on the card, the words
+     walk): their registers, spills and shared memory from phase 1's
+     `ptxas -v` lines; then, through `tools/profile_nms.py`'s cases, the
+     inputs `nms_mask` gets in bf16 inference with the bench's model and
+     draws (the RPN at batch 8 and 32, (B, 5, 1000) at t = 0.7; the
+     per-class NMS at batch 32, (32, 1024) class-shifted boxes at t = 0.5),
+     the RPN's at the training top-k ((32, 5, 2000): `select_proposals`
+     again on the bs 32 call's inputs), seeded clusters at those four shapes
+     and at (2, 5000) (exact duplicates, score ties, zero-width and NaN
+     boxes, padded rows) and seeded pairs whose IoU lies within 4 ULP of t
+     = 0.5 and 0.7 (some nearest the midpoint of t and the next float):
+     keep masks bit-equal to `nms_mask_plain` on the card, the words
      bit-equal to the CPU mirror (`ops.nms.suppression_words`) wherever the
-     kernel writes them, with the kernels', their plain versions', the
-     whole `nms_mask`'s and the plain fixpoint's ms (CUDA events) and the
-     bounds; then bf16 inference at batch 1 and 8 with `select_proposals`
-     and `fast_rcnn_inference` under `torch.cuda.set_sync_debug_mode("error")`
-     (no synchronising call inside them), and the synchronising calls of a
-     whole inference call counted (mode "warn") with the kernels and with
-     `nms_mask_plain` patched in, by source line. It prints the `nms:` JSON
-     line.
+     kernel writes them, the pairs the fast IoU test left to the division
+     (each near-threshold case must have some), the launch shapes, the
+     kernels', their plain versions', the whole `nms_mask`'s and the plain
+     fixpoint's ms (CUDA events) and the bounds; then bf16 inference at
+     batch 1 and 8 with `select_proposals` and `fast_rcnn_inference` under
+     `torch.cuda.set_sync_debug_mode("error")` (no synchronising call
+     inside them), and the synchronising calls of a whole inference call
+     counted (mode "warn") with the kernels and with `nms_mask_plain`
+     patched in, by source line. It prints the `nms:` JSON line.
 The line before the last is the kernel summary as JSON; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -2354,112 +2359,55 @@ def measurement_path(device):
 
 
 # phase 12: the NMS kernels
-NMS_REAL_BS = (8, 32)            # bench batches whose nms_mask inputs are captured
 NMS_SYNC_BS = (1, 8)             # bf16 inference calls checked for host syncs
 NMS_CPU_CHUNK = 16               # rows per chunk of the CPU mirror
-# the seeded cases: (label, shape, IoU threshold, classes for the offsets)
-NMS_SEEDED = (("rpn test bs 8", (8, 5, 1000), 0.7, 0), ("rpn test bs 32", (32, 5, 1000), 0.7, 0),
-              ("rpn train bs 32", (32, 5, 2000), 0.7, 0), ("per-class bs 32", (32, 1024), 0.5, 50))
 IOU_OPS = 13                     # float operations per IoU test (4 max / min, 2 sub,
                                  # 2 clamp, mul, add, sub, div, the compare)
 
 
-def _nms_clusters(shape, seed, classes=0):
-    """Seeded NMS inputs (boxes (..., N, 4), scores (..., N), valid): boxes
-    in clusters, ~10% exact duplicates, ~5% of zero width, scores on 17
-    levels (exact score ties), ~10% invalid rows, a NaN box per row and the
-    last eighth of every row padding (score NEG_INF, invalid), as
-    `select_proposals` pads its levels; with `classes` > 0 shifted by a
-    random class as `batched_nms_indices` shifts them."""
-    import numpy as np
-    import torch
-    from omni3d_tpu_torch.ops import nms as nms_ops
-    rng = np.random.default_rng(seed)
-    n = shape[-1]
-    centers = rng.uniform(20, 500, shape[:-1] + (max(1, n // 16), 2))
-    pick = rng.integers(0, centers.shape[-2], shape)
-    c = np.take_along_axis(centers, pick[..., None], -2) + rng.normal(0, 6, shape + (2,))
-    wh = rng.uniform(8, 120, shape + (2,))
-    boxes = np.concatenate([c - wh / 2, c + wh / 2], -1).astype(np.float32)
-    dup = rng.uniform(size=shape) < 0.1
-    boxes[dup] = np.repeat(boxes[..., :1, :], n, -2)[dup]
-    zero = rng.uniform(size=shape) < 0.05
-    boxes[..., 2][zero] = boxes[..., 0][zero]
-    boxes[..., n // 2, 1] = np.nan
-    scores = (np.round(rng.uniform(0, 1, shape) * 16) / 16).astype(np.float32)
-    valid = rng.uniform(size=shape) > 0.1
-    pad = n - n // 8
-    boxes[..., pad:, :] = 0.0
-    scores[..., pad:] = nms_ops.NEG_INF
-    valid[..., pad:] = False
-    boxes, scores, valid = map(torch.from_numpy, (boxes, scores, valid))
-    if classes:
-        boxes = nms_ops._offset_by_class(boxes, torch.from_numpy(rng.integers(0, classes, shape)))
-    return boxes, scores, valid
-
-
-def _nms_real_inputs(device):
-    """`nms_mask`'s arguments (boxes, scores, threshold, valid) recorded in
-    bf16 inference (the bench's model and draws) at NMS_REAL_BS, and the
-    RPN's at the training pre-NMS top-k: `select_proposals` again on the
-    bs 32 call's own inputs with PRE_NMS_TOPK_TRAIN / POST_NMS_TOPK_TRAIN."""
-    import torch
-    from omni3d_tpu_torch.models import rcnn3d, rpn
-    from omni3d_tpu_torch.ops import nms as nms_ops
-    from omni3d_tpu_torch.tools import bench
-    from omni3d_tpu_torch.tools.profile_stages import recorded
-
-    cfg = bench.config()
-    kw = rcnn3d.inference_kwargs(cfg)
-    model = bench.random_model(cfg, device)
-    data = bench.inputs(cfg, NMS_REAL_BS, bench.IMG, device)
-    cases = {}
-    with torch.no_grad():
-        for bs in NMS_REAL_BS:
-            _, images, Ks, ratios = data[bs]
-            with recorded(nms_ops, "nms_mask") as calls, \
-                    recorded(rcnn3d, "select_proposals") as sel:
-                rcnn3d.inference(model, images, Ks, ratios, **kw)
-            (rpn_call, _, _), (cls_call, _, _) = calls
-            cases[f"rpn test bs {bs}"] = rpn_call
-            if bs == NMS_REAL_BS[-1]:
-                cases[f"per-class bs {bs}"] = cls_call
-                args = sel[0][0]
-                rpn_cfg = cfg.MODEL.RPN
-                with recorded(nms_ops, "nms_mask") as calls:
-                    rpn.select_proposals(*args[:4], rpn_cfg.PRE_NMS_TOPK_TRAIN,
-                                         rpn_cfg.POST_NMS_TOPK_TRAIN, args[6])
-                cases[f"rpn train bs {bs}"] = calls[0][0]
-    del model
-    torch.cuda.empty_cache()
-    return cases
+def _nms_build_facts(build_log):
+    """The NMS kernels' registers, spills and shared memory from the build's
+    `ptxas -v` lines (phase 1's log): {kernel: text}."""
+    facts, current = {}, None
+    for line in build_log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1] if "'" in line else line
+            current = next((k for k in ("nms_words_kernel", "nms_greedy_kernel") if k in name),
+                           None)
+            if current and "ILb0" in name:          # the t < 0 / NaN instance of the words kernel
+                current += " (t < 0 or NaN)"
+        elif current and ("registers" in line or "spill" in line):
+            facts[current] = (facts.get(current, "") + " " + line.split(":", 1)[-1].strip()).strip()
+    return facts
 
 
 def _nms_case(label, boxes, scores, thresh, valid):
     """One NMS input on the card: the keep mask of `nms_mask` (the kernels)
     against `nms_mask_plain`, the words against the CPU mirror where the
-    kernel writes them, the times of both kernels and their plain versions
-    (CUDA events, median of 10; the greedy mirror, a loop of N steps, 3),
-    of `nms_mask` whole and of the plain fixpoint, and each kernel's bound
-    for these inputs."""
+    kernel writes them, the pairs the words kernel's fast IoU test left to
+    the division, the launch shapes, the times of both kernels and their
+    plain versions (CUDA events, median of 10; the greedy mirror, a loop of
+    N steps, 3), of `nms_mask` whole and of the plain fixpoint, and each
+    kernel's bound for these inputs."""
     import torch
     from omni3d_tpu_torch.ops import nms as nms_ops
     from omni3d_tpu_torch.ops import nms_cuda
+    from omni3d_tpu_torch.tools import profile_nms
     from omni3d_tpu_torch.utils.benchtime import bound
 
     n = scores.shape[-1]
     R = scores.numel() // n
-    W = -(-n // nms_cuda.TILE)
+    _, W, NP = nms_cuda.words_shape(R, n)
     got = nms_ops.nms_mask(boxes, scores, thresh, valid)
     want = nms_ops.nms_mask_plain(boxes, scores, thresh, valid)
     differ = int((got != want).sum())
-    boxes_s, valid_s, order = nms_ops._sorted(boxes, scores, valid)
-    boxes_s, valid_s, order = boxes_s.reshape(R, n, 4), valid_s.reshape(R, n), order.reshape(R, n)
+    boxes_s, valid_s, order = profile_nms.sorted_rows(boxes, scores, valid)
     words = nms_cuda.suppression_words(boxes_s, valid_s, thresh)
     keep_s = nms_cuda.greedy_keep(words, valid_s)
+    slow = profile_nms.slow_pairs(boxes_s, valid_s, thresh)
     torch.cuda.synchronize()
-    tile_of = torch.arange(n) // nms_cuda.TILE
-    defined = torch.arange(W)[None, :] >= tile_of[:, None]
+    tile_of = torch.arange(NP) // nms_cuda.TILE
+    defined = torch.arange(W)[:, None] >= tile_of[None, :]     # blocks (row tile, w >= it)
     words_cpu, boxes_cpu, valid_cpu = words.cpu(), boxes_s.cpu(), valid_s.cpu()
     word_differ = 0
     for r0 in range(0, R, NMS_CPU_CHUNK):
@@ -2468,9 +2416,17 @@ def _nms_case(label, boxes, scores, thresh, valid):
         word_differ += int((words_cpu[rows] != mirror)[:, defined].sum())
     del words_cpu, mirror
 
+    # the work these inputs need: pairs j > i of valid boxes, the words of
+    # the blocks w >= row tile, the kept boxes' later words
+    vf = valid_cpu.to(torch.int64)
+    later_valid = vf.flip(-1).cumsum(-1).flip(-1) - vf             # valid j > i, per i
+    pairs = int((later_valid * vf).sum())
     row = dict(case=label, shape=list(scores.shape), threshold=thresh,
                valid=int(valid_s.sum()), kept=int(got.sum()), differing_keep=differ,
-               differing_words=word_differ, words_compared=R * int(defined.sum()))
+               differing_words=word_differ, words_compared=R * int(defined.sum()),
+               valid_pairs=pairs, slow_pairs=slow,
+               slow_share=slow / pairs if pairs else 0.0,
+               launch=nms_cuda.launch_shapes(R, n))
     row["words_ms"] = cuda_ms(lambda: nms_cuda.suppression_words(boxes_s, valid_s, thresh))
     row["greedy_ms"] = cuda_ms(lambda: nms_cuda.greedy_keep(words, valid_s, order))
     row["nms_mask_ms"] = cuda_ms(lambda: nms_ops.nms_mask(boxes, scores, thresh, valid))
@@ -2480,24 +2436,24 @@ def _nms_case(label, boxes, scores, thresh, valid):
                                      iters=3, warmup=1)
     torch.cuda.empty_cache()
     # bounds for these inputs: (a) reads the boxes and validity, writes the
-    # words of tiles ct >= rt, and tests the pairs j > i of valid rows i;
+    # words of the blocks w >= row tile, tests the pairs of valid boxes;
     # (b) reads validity, the sort order, the diagonal words and the later
     # words of the kept boxes, writes the keep mask
-    per_row_words = int((W - tile_of).sum())
-    pairs = int(((n - 1 - torch.arange(n))[None, :] * valid_cpu).sum())
-    later = int(((W - 1 - tile_of)[None, :] * keep_s.cpu()).sum())
+    per_row_words = W * (W + 1) // 2 * nms_cuda.TILE
+    later = int(((W - 1 - tile_of[:n])[None, :] * keep_s.cpu()).sum())
     row["words_bound_ms"], row["words_bound_by"] = bound(
         R * n * (16 + 1) + R * per_row_words * 8, IOU_OPS * pairs)
     row["greedy_bound_ms"], row["greedy_bound_by"] = bound(
         R * n * (1 + 8 + 8 + 1) + later * 8, 0)
-    print(f"  {label:16s} {tuple(scores.shape)} t={thresh}: kept {row['kept']} of "
+    print(f"  {label:22s} {tuple(scores.shape)} t={thresh}: kept {row['kept']} of "
           f"{row['valid']} valid; keep vs nms_mask_plain differing {differ}, words vs the "
-          f"CPU mirror differing {word_differ} of {row['words_compared']}; words "
+          f"CPU mirror differing {word_differ} of {row['words_compared']}; slow-path pairs "
+          f"{slow} of {pairs} ({row['slow_share']:.2e}); words "
           f"{row['words_ms']:.4f} ms (plain {row['words_plain_ms']:.3f}, bound "
           f"{row['words_bound_ms']:.4f} by {row['words_bound_by']}), greedy "
           f"{row['greedy_ms']:.4f} ms (plain {row['greedy_plain_ms']:.1f}, bound "
           f"{row['greedy_bound_ms']:.4f}); nms_mask {row['nms_mask_ms']:.3f} ms, the plain "
-          f"fixpoint {row['fixpoint_ms']:.3f} ms")
+          f"fixpoint {row['fixpoint_ms']:.3f} ms; launch {row['launch']}")
     if differ or word_differ:
         raise AssertionError(f"NMS kernels disagree with the plain version: {row}")
     return row
@@ -2583,18 +2539,19 @@ def _nms_sync_checks(device):
     return result
 
 
-NMS_KERNELS = {
-    "suppression_words": ("nms_suppression_words", "words", "differing_words"),
-    "greedy_keep": ("nms_greedy_keep", "greedy", "differing_keep"),
+NMS_KERNELS = {   # wrapper: (C entry point, row key, error key, device kernel)
+    "suppression_words": ("nms_suppression_words", "words", "differing_words", "nms_words_kernel"),
+    "greedy_keep": ("nms_greedy_keep", "greedy", "differing_keep", "nms_greedy_kernel"),
 }
 NMS_TIMED_CASE = "rpn test bs 32"
 
 
-def nms_kernel_entry(kernel, rows, launches_by_path):
+def nms_kernel_entry(kernel, rows, launches_by_path, build):
     """The kernel line's entry of an NMS kernel: launches in the main
     paths' runs (phases 3, 5 and 11), times and bound at the recorded RPN
-    input of the bench's bs 32 batch, and every case's."""
-    name, key, differ = NMS_KERNELS[kernel]
+    input of the bench's bs 32 batch, its build facts, and every case's
+    times, launch shape (and, for the words, slow-path pairs)."""
+    name, key, differ, device_kernel = NMS_KERNELS[kernel]
     main = next(r for r in rows if r["case"] == NMS_TIMED_CASE)
     return {
         "name": name, "route": "cuda", "source": "omni3d_tpu_torch/csrc/nms.cu",
@@ -2607,31 +2564,40 @@ def nms_kernel_entry(kernel, rows, launches_by_path):
         "library_ms": None,
         "timed_case": f"{NMS_TIMED_CASE}: {main['shape']} recorded in bf16 inference, "
                       f"t {main['threshold']} (the kernel alone on its inputs)",
-        "cases": [{k: r[k] for k in ("case", "source", "shape", f"{key}_ms", f"{key}_plain_ms",
-                                      f"{key}_bound_ms", f"{key}_bound_by", differ,
-                                      "nms_mask_ms", "fixpoint_ms")} for r in rows],
+        "build": {k: v for k, v in build.items() if k.startswith(device_kernel)},
+        "cases": [{**{k: r[k] for k in ("case", "source", "shape", f"{key}_ms", f"{key}_plain_ms",
+                                         f"{key}_bound_ms", f"{key}_bound_by", differ,
+                                         "nms_mask_ms", "fixpoint_ms")},
+                   "launch": r["launch"][device_kernel],
+                   **({"slow_pairs": r["slow_pairs"], "slow_share": r["slow_share"]}
+                      if kernel == "suppression_words" else {})} for r in rows],
     }
 
 
-def nms_path(device):
-    """Phase 12: the NMS kernels against `nms_mask_plain` and the CPU mirror
-    at the main path's shapes on two sources of boxes (recorded from the
-    bench's batches, and seeded clusters), with times and bounds; then the
-    host-sync checks."""
+def nms_path(device, build_log):
+    """Phase 12: the NMS kernels' build facts, then the kernels against
+    `nms_mask_plain` and the CPU mirror at the main path's shapes on three
+    sources of boxes (recorded from the bench's batches, seeded clusters,
+    seeded near-threshold pairs), with times and bounds; then the host-sync
+    checks."""
+    from omni3d_tpu_torch.tools import profile_nms
     t0 = time.perf_counter()
-    cases = _nms_real_inputs(device)
+    facts = _nms_build_facts(build_log)
+    for kernel, text in facts.items():
+        print(f"  {kernel}: {text}")
+    if not any(k.startswith("nms_words_kernel") for k in facts) or \
+            "nms_greedy_kernel" not in facts:
+        raise AssertionError(f"phase 1's log lacks the NMS kernels' ptxas lines: {facts}")
     rows = []
-    for label, (boxes, scores, thresh, valid) in cases.items():
-        rows.append(dict(_nms_case(label, boxes, scores, thresh, valid),
-                         source="recorded (bench model, bf16 inference)"))
-    del cases
-    for i, (label, shape, thresh, classes) in enumerate(NMS_SEEDED):
-        boxes, scores, valid = (x.to(device) for x in _nms_clusters(shape, i, classes))
-        rows.append(dict(_nms_case(f"seeded {label}", boxes, scores, thresh, valid),
-                         source="seeded clusters"))
+    for label, source, boxes, scores, thresh, valid in profile_nms.cases(device):
+        rows.append(dict(_nms_case(label, boxes, scores, thresh, valid), source=source))
+        del boxes, scores, valid
+    near = [r for r in rows if r["source"].endswith("near-threshold pairs")]
+    if not near or not all(r["slow_pairs"] for r in near):
+        raise AssertionError("a near-threshold case took no slow-path pair")
     syncs = _nms_sync_checks(device)
     print(f"  phase 12 took {time.perf_counter() - t0:.1f} s")
-    return dict(cases=rows, host_syncs=syncs)
+    return dict(build=facts, cases=rows, host_syncs=syncs)
 
 
 def main():
@@ -2653,9 +2619,9 @@ def main():
 
     from omni3d_tpu_torch.utils import cuda_build
     print("[1/12] build")
-    path, secs, log = cuda_build.build()
+    path, secs, build_log = cuda_build.build()
     print(f"  {os.path.relpath(path, ROOT)} built in {secs:.1f} s")
-    for line in log.splitlines():
+    for line in build_log.splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print("  ptxas:", line.strip()[:160])
     if sys.argv[1:2] == ["--gate-probe"]:
@@ -2701,7 +2667,7 @@ def main():
 
     print("[12/12] the NMS kernels vs plain PyTorch version; host syncs of the proposal and "
           "detection NMS")
-    nms = nms_path(device)
+    nms = nms_path(device, build_log)
 
     bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "omni3d_tpu")]
     assert not bad, bad
@@ -2781,7 +2747,7 @@ def main():
     }] + [nms_kernel_entry(kernel, nms["cases"], {
         "inference": inference_check["nms_launches"][kernel],
         "training": train_launches[kernel],
-        **{k: n[kernel] for k, n in tool_launches.items()}})
+        **{k: n[kernel] for k, n in tool_launches.items()}}, nms["build"])
         for kernel in ("suppression_words", "greedy_keep")]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

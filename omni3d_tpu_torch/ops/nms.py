@@ -14,8 +14,8 @@ whose suppression chain is at most m deep, so the loop runs chain-depth
 times, each one batched matrix-vector product over the (..., N, N) overlap
 matrix, with a host sync per iteration). On CUDA tensors it launches the
 two kernels of `csrc/nms.cu` through `ops/nms_cuda.py`, or the wrapper
-raises: 64-bit suppression words per pair tile, then one warp per row
-walking them greedily in score order, with no host sync. Sequential greedy
+raises: 64-bit suppression words per 64 x 64 pair tile, then one block per
+row walking them greedily in score order, with no host sync. Sequential greedy
 is the fixpoint, so both give the same mask bit for bit.
 `suppression_words` and `greedy_keep_from_words` are the kernels' CPU
 mirror: the same words, in the same layout and bit order, and the same walk.
@@ -100,36 +100,36 @@ def nms_mask(boxes: torch.Tensor, scores: torch.Tensor, iou_threshold: float,
 
 def suppression_words(boxes_s: torch.Tensor, valid_s: torch.Tensor,
                       iou_threshold: float) -> torch.Tensor:
-    """CPU mirror of the words kernel: (..., N, ceil(N / 64)) int64 for
-    score-sorted boxes (..., N, 4) and their validity (..., N); bit b of
-    word w of box i is set iff valid_s[i], j = 64 w + b > i, j < N and
-    IoU(i, j) > iou_threshold (bit 63 is the sign bit). Words w < i // 64,
-    which the kernel leaves unwritten, are 0 here."""
+    """CPU mirror of the words kernel: (..., W, 64 W) int64, W = ceil(N /
+    64), for score-sorted boxes (..., N, 4) and their validity (..., N);
+    bit b of words[..., w, i] is set iff valid_s[i], valid_s[j], j = 64 w +
+    b > i, j < N and IoU(i, j) > iou_threshold (bit 63 is the sign bit).
+    Blocks w < i // 64, which the kernel leaves unwritten, are 0 here."""
     n = boxes_s.shape[-2]
-    n_words = -(-n // nms_cuda.TILE)
+    n_pad = -(-n // nms_cuda.TILE) * nms_cuda.TILE
     sup = ((box_ops.pairwise_iou(boxes_s, boxes_s) > iou_threshold)
-           & _upper(n, boxes_s.device) & valid_s[..., :, None])
-    sup = torch.nn.functional.pad(sup, (0, n_words * nms_cuda.TILE - n))
-    bits = sup.reshape(*sup.shape[:-1], n_words, nms_cuda.TILE).to(torch.int64)
+           & _upper(n, boxes_s.device) & valid_s[..., :, None] & valid_s[..., None, :])
+    sup = torch.nn.functional.pad(sup, (0, n_pad - n, 0, n_pad - n))
+    bits = sup.reshape(*sup.shape[:-1], -1, nms_cuda.TILE).to(torch.int64)
     weights = torch.ones((), dtype=torch.int64) << torch.arange(nms_cuda.TILE)
-    return (bits * weights.to(boxes_s.device)).sum(-1)   # distinct bits: the sum is their OR
+    words = (bits * weights.to(boxes_s.device)).sum(-1)   # distinct bits: the sum is their OR
+    return words.transpose(-1, -2).contiguous()
 
 
 def greedy_keep_from_words(words: torch.Tensor, valid_s: torch.Tensor) -> torch.Tensor:
     """CPU mirror of the greedy kernel: the keep mask (..., N) in score
-    order from suppression words (..., N, W) and validity (..., N). Box i is
-    kept iff valid and not removed; a kept box ORs its words w >= i // 64
-    into the removed bits (the lower words are never read)."""
+    order from suppression words (..., W, 64 W) and validity (..., N). Box
+    i is kept iff valid and not removed; a kept box ORs its words w >= i //
+    64 into the removed bits (the lower words are never read)."""
     n = valid_s.shape[-1]
-    removed = torch.zeros(words.shape[:-2] + words.shape[-1:], dtype=torch.int64,
-                          device=words.device)
+    removed = torch.zeros(words.shape[:-1], dtype=torch.int64, device=words.device)
     keep = torch.zeros_like(valid_s)
     for i in range(n):
         w, b = divmod(i, nms_cuda.TILE)
         k = valid_s[..., i] & (((removed[..., w] >> b) & 1) == 0)
         keep[..., i] = k
-        removed[..., w:] |= torch.where(k[..., None], words[..., i, w:],
-                                        torch.zeros_like(words[..., i, w:]))
+        removed[..., w:] |= torch.where(k[..., None], words[..., w:, i],
+                                        torch.zeros_like(words[..., w:, i]))
     return keep
 
 

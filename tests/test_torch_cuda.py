@@ -535,21 +535,34 @@ def _nms_rows(shape, seed=0, spread=400.0):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape,thresh,classes", [((2, 5, 1000), 0.7, False),
-                                                  ((1, 5, 2000), 0.7, False),
-                                                  ((3, 1024), 0.5, True),
-                                                  ((4, 65), 0.5, False)],
-                         ids=["rpn-test", "rpn-train", "per-class", "65"])
-def test_nms_kernels_match_plain(device, shape, thresh, classes):
+@pytest.mark.parametrize("shape,thresh,kind", [((2, 5, 1000), 0.7, "clusters"),
+                                               ((1, 5, 2000), 0.7, "clusters"),
+                                               ((3, 1024), 0.5, "classes"),
+                                               ((4, 65), 0.5, "clusters"),
+                                               ((2, 5000), 0.7, "clusters"),
+                                               ((1, 16384), 0.7, "clusters"),
+                                               ((4, 1000), 0.5, "near"),
+                                               ((4, 1000), 0.7, "near")],
+                         ids=["rpn-test", "rpn-train", "per-class", "65", "5000", "16384",
+                              "near-0.5", "near-0.7"])
+def test_nms_kernels_match_plain(device, shape, thresh, kind):
     """The keep mask of `nms_mask` on the card (the two kernels) equals
-    `nms_mask_plain` on the card bit for bit; the words equal the CPU
-    mirror where the kernel writes them; the greedy kernel on the mirror's
-    words gives the mirror's walk; one launch of each kernel per call."""
+    `nms_mask_plain` on the card bit for bit; the words equal the mirror
+    where the kernel writes them; the greedy kernel on the mirror's words
+    gives the mirror's walk; one launch of each kernel per call. N = 2000,
+    5000 and 16384 take the greedy kernel's ring of staged tiles past its
+    end (N > 4096: folds from device memory); the near-threshold pairs'
+    IoU lies within 4 ULP of t, so the fast IoU test leaves some to the
+    division."""
     from omni3d_tpu_torch.ops import nms as tnms
     from omni3d_tpu_torch.ops import nms_cuda
+    from omni3d_tpu_torch.tools import profile_nms
 
-    boxes, scores, valid = _nms_rows(shape)
-    if classes:
+    if kind == "near":
+        boxes, scores, valid, _ = profile_nms.near_threshold(shape, thresh, 1)
+    else:
+        boxes, scores, valid = _nms_rows(shape)
+    if kind == "classes":
         idx = torch.randint(0, 50, shape, generator=torch.Generator().manual_seed(1))
         boxes = tnms._offset_by_class(boxes, idx)
     b, s, v = boxes.to(device), scores.to(device), valid.to(device)
@@ -560,19 +573,74 @@ def test_nms_kernels_match_plain(device, shape, thresh, classes):
             nms_cuda.greedy_keep.launches - before[1]) == (1, 1)
     want = tnms.nms_mask_plain(b, s, thresh, v)
     assert got.dtype == torch.bool and torch.equal(got, want)
-    assert torch.equal(got.cpu(), tnms.nms_mask_plain(boxes, scores, thresh, valid))
+    if shape[-1] <= 2000:
+        assert torch.equal(got.cpu(), tnms.nms_mask_plain(boxes, scores, thresh, valid))
     assert 0 < int(got.sum()) < int(valid.sum())
 
     n = shape[-1]
-    boxes_s, valid_s, _ = tnms._sorted(boxes, scores, valid)
+    boxes_s, valid_s, _ = tnms._sorted(b, s, v)
     rows = (-1, n)
-    words = nms_cuda.suppression_words(boxes_s.reshape(*rows, 4).to(device),
-                                       valid_s.reshape(rows).to(device), thresh).cpu()
-    mirror = tnms.suppression_words(boxes_s.reshape(*rows, 4), valid_s.reshape(rows), thresh)
-    defined = (torch.arange(words.shape[-1])[None, :] >= torch.arange(n)[:, None] // 64)
+    boxes_s, valid_s = boxes_s.reshape(*rows, 4), valid_s.reshape(rows)
+    slow = torch.zeros(1, dtype=torch.int64, device=device)
+    words = nms_cuda.suppression_words(boxes_s, valid_s, thresh, slow_pairs=slow)
+    mirror = tnms.suppression_words(boxes_s, valid_s, thresh)
+    W = words.shape[1]
+    defined = torch.arange(W, device=device)[:, None] >= torch.arange(64 * W, device=device) // 64
     assert torch.equal(words[:, defined], mirror[:, defined])
-    keep_s = nms_cuda.greedy_keep(mirror.to(device), valid_s.reshape(rows).to(device)).cpu()
-    assert torch.equal(keep_s, tnms.greedy_keep_from_words(mirror, valid_s.reshape(rows)))
+    if kind == "near":
+        assert int(slow.item()) > 0
+    keep_s = nms_cuda.greedy_keep(mirror, valid_s)
+    if n <= 2000:
+        assert torch.equal(keep_s.cpu(), tnms.greedy_keep_from_words(mirror.cpu(), valid_s.cpu()))
+    else:
+        assert torch.equal(keep_s, nms_cuda.greedy_keep(words, valid_s))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("thresh", [-0.1, 0.0, 1e-12, 1.0, 2.0 ** 31, float("nan")])
+def test_nms_kernels_thresholds_outside_the_band(device, thresh):
+    """Thresholds where the words kernel's fast IoU test steps aside: t < 0
+    and NaN divide every pair (the other instance of the kernel), t = 0 and
+    t outside `nms_cuda.FAST_RANGE` divide every overlapping pair; the
+    words equal the mirror and the keep mask the plain one."""
+    from omni3d_tpu_torch.ops import nms as tnms
+    from omni3d_tpu_torch.ops import nms_cuda
+
+    boxes, scores, valid = _nms_rows((3, 200), seed=7)
+    b, s, v = boxes.to(device), scores.to(device), valid.to(device)
+    assert torch.equal(tnms.nms_mask(b, s, thresh, v), tnms.nms_mask_plain(b, s, thresh, v))
+    boxes_s, valid_s, _ = tnms._sorted(b, s, v)
+    slow = torch.zeros(1, dtype=torch.int64, device=device)
+    words = nms_cuda.suppression_words(boxes_s, valid_s, thresh, slow_pairs=slow)
+    mirror = tnms.suppression_words(boxes_s, valid_s, thresh)
+    defined = torch.arange(4, device=device)[:, None] >= torch.arange(256, device=device) // 64
+    assert torch.equal(words[:, defined], mirror[:, defined])
+    fast, _, _ = nms_cuda.iou_band(thresh)
+    assert fast == (thresh >= 0) and int(slow.item()) > 0
+
+
+@pytest.mark.cuda
+def test_nms_kernels_valid_boxes_need_not_be_a_prefix(device):
+    """Sorted rows whose first box and second 64-box tile are invalid (a +NaN
+    score sorts first): the words kernel writes zero words for the invalid
+    boxes, and the kernels' mask equals the mirror's and the plain one."""
+    from omni3d_tpu_torch.ops import nms as tnms
+    from omni3d_tpu_torch.ops import nms_cuda
+
+    boxes, _, valid = _nms_rows((3, 300), seed=4)
+    valid[:, 0] = False
+    valid[:, 64:128] = False
+    desc = torch.linspace(1, 0.5, 300).expand(3, 300).contiguous()
+    b, v = boxes.to(device), valid.to(device)
+    words = nms_cuda.suppression_words(b, v, 0.7)
+    keep = nms_cuda.greedy_keep(words, v).cpu()
+    mirror = tnms.suppression_words(boxes, valid, 0.7)
+    assert not words[:, 1:, 64:128].any() and not words[:, :, 0].any()   # written blocks
+    defined = torch.arange(5)[:, None] >= torch.arange(320) // 64
+    assert torch.equal(words.cpu()[:, defined], mirror[:, defined])
+    assert torch.equal(keep, tnms.greedy_keep_from_words(mirror, valid))
+    assert torch.equal(keep, tnms.nms_mask_plain(boxes, desc, 0.7, valid))
+    assert keep[:, 128:].any() and not keep[:, 64:128].any()
 
 
 @pytest.mark.cuda
@@ -598,7 +666,7 @@ def test_nms_wrappers_refuse_what_the_kernels_do_not_take(device):
     with pytest.raises(ValueError):
         nms_cuda.greedy_keep(words, valid, torch.zeros(2, 100, dtype=torch.int32, device=device))
     with pytest.raises(ValueError):
-        nms_cuda.greedy_keep(words[:, :50], valid)
+        nms_cuda.greedy_keep(words[:, :1], valid)   # (R, W, 64 W) is (2, 2, 128) here
 
 
 @pytest.mark.cuda

@@ -26,7 +26,7 @@ def test_port_modules_load_no_jax():
             "omni3d_tpu_torch.utils.benchtime", "omni3d_tpu_torch.tools.bench",
             "omni3d_tpu_torch.tools.bench_train", "omni3d_tpu_torch.tools.profile_stages",
             "omni3d_tpu_torch.tools.profile_backbone", "omni3d_tpu_torch.ops.nms_cuda",
-            "omni3d_tpu_torch.utils.cuda_build"} <= set(mods)
+            "omni3d_tpu_torch.utils.cuda_build", "omni3d_tpu_torch.tools.profile_nms"} <= set(mods)
     for p in (ROOT / "omni3d_tpu_torch").rglob("*.py"):
         text = p.read_text()
         assert '"native"' not in text and "native/" not in text, p
