@@ -65,8 +65,9 @@ Phases (each raises on failure):
      images at SUN RGB-D's 530 x 730, 8 PNG images at KITTI's 375 x 1242),
      then `tools.train_net --eval-only` with phase 6's model_final.ckpt at
      TPU.EVAL_BATCH_SIZE 1 and 8 (bfloat16, full width): the result files,
-     every AP value a percentage or the protocol's -1 / NaN, two forward
-     and no backward launches per inference batch; the forward kernel's
+     every AP value a percentage or the protocol's -1 / NaN, one CUDA graph
+     per padded batch shape (four forward launches through the wrapper per
+     capture, none per replay, no backward); the forward kernel's
      output at each distinct (padded pyramid, box count) of each run held
      against the plain pooler on the same recorded inputs; a GT echo through
      `Omni3DEvaluationHelper` with IoU3D on the card at AP2D = AP3D = 100 on
@@ -134,18 +135,20 @@ Phases (each raises on failure):
      JSON line;
  11. the measurement tools at full width (DLA34-FPN, bf16, 512 px), each
      through its `run` with the launch counts at 0: `tools.bench` at batch
-     1, 8 and 32 (3 rounds x 10 calls in turns; the bs 32 outputs of its
-     last call equal a direct `inference` call; the box and cube poolers
+     1, 8 and 32 (3 rounds x 10 calls of `inference_step` and of eager
+     `inference` in turns; the bs 32 outputs of its last graphed call equal
+     a direct `inference` call; the box and cube poolers
      on that batch against the plain pooler with phase 2's tolerances),
      `tools.bench_train` at bf16 batch 32 (3 rounds x 3 steps),
      `tools.profile_stages` at batch 8 (its stage chain's outputs equal
      `inference`'s) and `tools.profile_backbone` at batch 32 (its blocks in
      order give `model.features` exactly), 2 rounds each: two forward
      launches per inference call and one forward and one backward per
-     training step, by the wrappers' counts and in the profiled rounds, two
-     launches of each NMS kernel per inference call and one per training
-     step, 0 < mfu <= 1 for every record. It prints the `measurement:` JSON
-     line;
+     training step, two launches of each NMS kernel per inference call and
+     one per training step, by the wrappers' counts for eager calls and
+     captures and by the profiled rounds' kernel records for eager and
+     graphed calls (a replay runs no wrapper), 0 < mfu <= 1 for every
+     record. It prints the `measurement:` JSON line;
  12. the NMS kernels (`csrc/nms.cu`: the suppression words, the greedy
      walk): their registers, spills and shared memory from phase 1's
      `ptxas -v` lines; then, through `tools/profile_nms.py`'s cases, the
@@ -167,7 +170,27 @@ Phases (each raises on failure):
      `torch.cuda.set_sync_debug_mode("error")` (no synchronising call
      inside them), and the synchronising calls of a whole inference call
      counted (mode "warn") with the kernels and with `nms_mask_plain`
-     patched in, by source line. It prints the `nms:` JSON line.
+     patched in, by source line. It prints the `nms:` JSON line;
+ 13. `rcnn3d.inference_step`, one CUDA graph per padded shape, at full
+     width (phase 3's DLA34-FPN models, f32 with TF32 off and bf16, 512 px,
+     batch 1, 8 and 32) against eager `inference` on the same inputs:
+     every output bit-equal at the first call and at replays in the order
+     1, 8, 1, 32, 8; each capture 2 forward, 0 backward and 2 + 2 NMS
+     launches through the wrappers, and per replayed call the same in the
+     profiler's kernel records; no synchronising call inside a replay; an
+     earlier result unchanged by a later call; after `load_state_dict` of
+     other seeded weights the replay equals eager, with no new capture; a
+     parameter rebound to new storage recaptured and equal to eager; phase
+     7's `--eval-only` predictions equal an eager run's from the same
+     checkpoint at batch 1 and 8. It prints, with no pass or fail, the
+     warm-up and capture ms per shape, the pool's bytes and eager vs graphed
+     ms per call and busy share in turns, with the card, and the `graphs:`
+     JSON line.
+Phases 7, 8c, 9a, 10 and 11 drive `inference_step` through the entry points
+(`do_test`, `tools.demo`, `tools.bench`): there the wrappers count four
+forward launches per graph captured (its eager warm-up and the capture) and
+none per replay, and the bench's replayed launches come from the profiler's
+kernel records. Phases 3 and 12 call `inference` eagerly.
 The line before the last is the kernel summary as JSON; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -238,9 +261,17 @@ def cuda_ms(fn, iters=10, warmup=3):
 
 NMS_PER_INFERENCE = {"suppression_words": 2, "greedy_keep": 2}   # the RPN's and the per-class
 NMS_PER_STEP = {"suppression_words": 1, "greedy_keep": 1}        # the RPN's
+# per inference call, by kernel (`benchtime.HAND_KERNELS`' names): the
+# wrappers' counts of an eager call or a capture, and the kernel records of
+# any call
+KERNELS_PER_INFERENCE = {"roi_align_fwd": 2, "roi_align_bwd": 0, "suppression_words": 2,
+                         "greedy_keep": 2}
 
 
 def _nms_counts():
+    """The NMS wrappers' launch counts. They count eager calls, and the warm-up
+    and capture of a graph; a graph replay runs no wrapper (phase 13 reads
+    replayed launches from the profiler's kernel records)."""
     from omni3d_tpu_torch.ops import nms_cuda
     return {"suppression_words": nms_cuda.suppression_words.launches,
             "greedy_keep": nms_cuda.greedy_keep.launches}
@@ -254,6 +285,28 @@ def _reset_nms_counts():
 
 def _nms_diff(before, after):
     return {k: after[k] - before[k] for k in after}
+
+
+def _graph_counts():
+    """(captures, replays) of `rcnn3d.inference_step` in this process."""
+    from omni3d_tpu_torch.models import rcnn3d
+    return rcnn3d.inference_step.captures, rcnn3d.inference_step.replays
+
+
+def _reset_graph_counts():
+    from omni3d_tpu_torch.models import rcnn3d
+    rcnn3d.inference_step.captures = rcnn3d.inference_step.replays = 0
+
+
+def graphed_launch_check(what, launches, calls, captures, replays):
+    """The ROIAlign wrappers' counts over `calls` `inference_step` calls on
+    the card: a capture runs `inference` twice (its eager warm-up and the
+    capture), two forward launches each; a replay runs no wrapper. Raises
+    unless captures + replays == calls and the counts are 4 per capture."""
+    want = {"forward": 4 * captures, "backward": 0}
+    if captures + replays != calls or launches != want:
+        raise AssertionError(f"{what}: {calls} inference_step calls, {captures} captures and "
+                             f"{replays} replays; wrapper launches {launches}, not {want}")
 
 
 def kernel_vs_plain(device):
@@ -477,6 +530,19 @@ def _config(name, *opts):
     return cfg
 
 
+def main_path_inputs(cfg, bs, device):
+    """Phase 3's batch: seeded uint8 images at IMG px, preprocessed; one K;
+    ratios 1."""
+    import numpy as np
+    import torch
+    from omni3d_tpu_torch.models import rcnn3d
+    raw = np.random.default_rng(0).integers(0, 255, (bs, IMG, IMG, 3), dtype=np.uint8)
+    images = rcnn3d.preprocess(torch.from_numpy(raw).to(device),
+                               cfg.MODEL.PIXEL_MEAN, cfg.MODEL.PIXEL_STD)
+    K = torch.tensor([[512.0, 0, IMG / 2], [0, 512.0, IMG / 2], [0, 0, 1]], device=device)
+    return images, K.expand(bs, 3, 3).contiguous(), torch.ones(bs, device=device)
+
+
 def main_path(device, config="cubercnn_DLA34_FPN.yaml"):
     """Full-width inference of `config` at 512 px: f32 and bf16 at BATCHES,
     two forward launches per call, then one f32 call with the kernel and
@@ -486,9 +552,9 @@ def main_path(device, config="cubercnn_DLA34_FPN.yaml"):
     from unit scale); scores and boxes to fixed tolerances. The 6D pose bias
     starts at the identity (`condition_pose_bias_`: a detection clipped to
     zero height pools zero features, and the zero bias then decodes to an
-    all-zero pose). Returns (timings, launches, kernel-vs-plain errors)."""
+    all-zero pose). Returns (timings, launches, {dtype: model}, kernel-vs-plain
+    errors)."""
     import torch
-    import numpy as np
     from omni3d_tpu_torch.models import rcnn3d
     from omni3d_tpu_torch.ops import nms as nms_ops
     from omni3d_tpu_torch.ops.roi_align_cuda import multilevel_roi_align
@@ -500,13 +566,6 @@ def main_path(device, config="cubercnn_DLA34_FPN.yaml"):
     print(f"  config {config}: {C} classes, FPN {cfg.MODEL.FPN.OUT_CHANNELS}, "
           f"FC {cfg.MODEL.ROI_BOX_HEAD.FC_DIM}; inference_kwargs {kw}")
 
-    def inputs(bs):
-        raw = np.random.default_rng(0).integers(0, 255, (bs, IMG, IMG, 3), dtype=np.uint8)
-        images = rcnn3d.preprocess(torch.from_numpy(raw).to(device),
-                                   cfg.MODEL.PIXEL_MEAN, cfg.MODEL.PIXEL_STD)
-        K = torch.tensor([[512.0, 0, IMG / 2], [0, 512.0, IMG / 2], [0, 0, 1]], device=device)
-        return images, K.expand(bs, 3, 3).contiguous(), torch.ones(bs, device=device)
-
     timings, models = [], {}
     multilevel_roi_align.launches = 0          # counts of the main path's run only
     multilevel_roi_align.bwd_launches = 0
@@ -516,7 +575,7 @@ def main_path(device, config="cubercnn_DLA34_FPN.yaml"):
         condition_pose_bias_(model)
         models[dtype] = model
         for bs, iters in BATCHES:
-            images, Ks, ratio = inputs(bs)
+            images, Ks, ratio = main_path_inputs(cfg, bs, device)
             for _ in range(2):                  # warm-up (cuDNN plans, allocator)
                 rcnn3d.inference(model, images, Ks, ratio, **kw)
             torch.cuda.synchronize()
@@ -560,7 +619,7 @@ def main_path(device, config="cubercnn_DLA34_FPN.yaml"):
             return out
         return spy, seen
 
-    images, Ks, ratio = inputs(PLAIN_BS)
+    images, Ks, ratio = main_path_inputs(cfg, PLAIN_BS, device)
     nms_mask_kernel = nms_ops.nms_mask
     outs = {}
     for label, pool in (("kernel", multilevel_roi_align), ("plain", plain_pool)):
@@ -599,7 +658,7 @@ def main_path(device, config="cubercnn_DLA34_FPN.yaml"):
     print(f"  f32 bs={PLAIN_BS} with nms_mask_plain patched in: outputs equal to the "
           f"kernels' call in {len(ko) - len(differ)} of {len(ko)} keys")
     assert not differ, differ
-    return timings, launches, dict(pooled_max_abs_err=pooled_err, pooled_max_abs=pooled_max,
+    return timings, launches, models, dict(pooled_max_abs_err=pooled_err, pooled_max_abs=pooled_max,
                                    tol=F32_ATOL * scale, final_outputs=errs,
                                    nms_launches=nms_launches, plain_nms_outputs_equal=True)
 
@@ -1105,6 +1164,17 @@ def _ap_ok(key, v):
     return v == -1.0 or 0.0 <= v <= 100.0
 
 
+def eval_argv(device, tmp, weights, bs, out_dir):
+    """Phase 7's `tools.train_net --eval-only` arguments at batch `bs`."""
+    from omni3d_tpu_torch.tools.profile_entry import SPLITS
+    return ["--config-file", os.path.join(ROOT, "configs", "cubercnn_DLA34_FPN.yaml"),
+            "--datasets-root", os.path.join(tmp, "Omni3D"), "--device", device.type,
+            "--eval-only", "--weights", weights,
+            "OUTPUT_DIR", out_dir, "DATASETS.TRAIN", str(tuple(SPLITS)),
+            "DATASETS.TEST", str(tuple(EVAL_SPLITS)), "TPU.COMPUTE_DTYPE", "bfloat16",
+            "TPU.EVAL_BATCH_SIZE", str(bs), "SEED", "0"]
+
+
 def evaluation_path(device, tmp, weights):
     """Phase 7: `tools.train_net --eval-only` with phase 6's model_final.ckpt
     on two synthetic test splits written from a seed under `tmp`
@@ -1123,7 +1193,6 @@ def evaluation_path(device, tmp, weights):
     from omni3d_tpu_torch.models import rcnn3d
     from omni3d_tpu_torch.ops.roi_align_cuda import multilevel_roi_align
     from omni3d_tpu_torch.tools import bench_eval, train_net
-    from omni3d_tpu_torch.tools.profile_entry import SPLITS
     from omni3d_tpu_torch.tools.synthetic import write_omni3d_dataset
 
     for i, (name, (n, h, w, fmt, focal)) in enumerate(EVAL_SPLITS.items()):
@@ -1136,16 +1205,12 @@ def evaluation_path(device, tmp, weights):
     runs, launches, pooler_checks = {}, {"forward": 0, "backward": 0}, []
     for bs in EVAL_BATCH_SIZES:
         out_dir = os.path.join(tmp, f"eval_bs{bs}")
-        argv = ["--config-file", os.path.join(ROOT, "configs", "cubercnn_DLA34_FPN.yaml"),
-                "--datasets-root", os.path.join(tmp, "Omni3D"), "--device", device.type,
-                "--eval-only", "--weights", weights,
-                "OUTPUT_DIR", out_dir, "DATASETS.TRAIN", str(tuple(SPLITS)),
-                "DATASETS.TEST", str(tuple(EVAL_SPLITS)), "TPU.COMPUTE_DTYPE", "bfloat16",
-                "TPU.EVAL_BATCH_SIZE", str(bs), "SEED", "0"]
+        argv = eval_argv(device, tmp, weights, bs, out_dir)
         spy, seen = first_pooler_calls()
         rcnn3d.multilevel_roi_align = spy
         multilevel_roi_align.launches = 0          # counts of the main path's run only
         multilevel_roi_align.bwd_launches = 0
+        _reset_graph_counts()
         try:
             t0 = time.perf_counter()
             results = train_net.main(argv)
@@ -1156,13 +1221,15 @@ def evaluation_path(device, tmp, weights):
         n_batches = sum(len(results[k]["inference"]["batches"]) for k in EVAL_SPLITS)
         run_launches = {"forward": multilevel_roi_align.launches,
                         "backward": multilevel_roi_align.bwd_launches}
+        captures, replays = _graph_counts()
         checks = pooler_vs_plain(seen, bs)
         pooler_checks += checks
-        print(f"  bs {bs}: kernel launches {run_launches} over {n_batches} inference batches; "
-              f"forward kernel vs plain pooler on the run's own inputs at {len(checks)} "
+        print(f"  bs {bs}: kernel launches {run_launches} through the wrappers over {n_batches} "
+              f"inference batches ({captures} graphs captured, {replays} replays); forward "
+              f"kernel vs plain pooler on the run's own inputs at {len(checks)} "
               f"(pyramid, boxes) shapes: max|k-p| {max(c['max_abs_err'] for c in checks):.3e}, "
               f"differing at most {max(c['mismatch'] for c in checks):.1e}")
-        assert run_launches == {"forward": 2 * n_batches, "backward": 0}, run_launches
+        graphed_launch_check(f"--eval-only bs {bs}", run_launches, n_batches, captures, replays)
         for k in launches:
             launches[k] += run_launches[k]
         files = os.path.join(out_dir, "inference", "iter_final")
@@ -1180,7 +1247,8 @@ def evaluation_path(device, tmp, weights):
                   f" AP3D {results[name]['AP3D']:.3f}")
         bad = {k: v for k, v in results["summary"].items() if not _ap_ok(k, v)}
         assert not bad, bad
-        runs[bs] = dict(wall_s=wall, splits={k: results[k]["inference"] for k in EVAL_SPLITS})
+        runs[bs] = dict(wall_s=wall, splits={k: results[k]["inference"] for k in EVAL_SPLITS},
+                        graphs=dict(captures=captures, replays=replays))
     peak = torch.cuda.max_memory_allocated()
 
     # GT echo: the GTs as predictions, IoU3D on the card -> AP 100
@@ -1226,7 +1294,10 @@ def evaluation_path(device, tmp, weights):
 def first_pooler_calls():
     """(spy, seen): a stand-in for `rcnn3d.multilevel_roi_align` that calls
     the kernel's wrapper and keeps copies of the inputs and the output of the
-    first call at each (pyramid shape, boxes shape) in `seen`."""
+    first call at each (pyramid shape, boxes shape) in `seen`. Under
+    `inference_step` that first call is the eager warm-up of the graph at
+    that shape (the capture calls the spy again, and a replay does not call
+    it): the kernel as the graph captured it, held against the plain pooler."""
     from omni3d_tpu_torch.ops.roi_align_cuda import multilevel_roi_align
     seen = {}
 
@@ -1531,6 +1602,7 @@ def _eval_child(rank, device, store, argv, result_path):
     try:
         multilevel_roi_align.launches = 0          # counts of the main path's run only
         multilevel_roi_align.bwd_launches = 0
+        _reset_graph_counts()
         t0 = time.perf_counter()
         results = train_net.main(argv)
         _sync(device)
@@ -1540,7 +1612,8 @@ def _eval_child(rank, device, store, argv, result_path):
                        "AP": {k: v for k, v in results["SUNRGBD_test"].items()
                               if k.startswith(("AP", "AR"))},
                        "launches": {"forward": multilevel_roi_align.launches,
-                                    "backward": multilevel_roi_align.bwd_launches}}, f)
+                                    "backward": multilevel_roi_align.bwd_launches},
+                       "graphs": _graph_counts()}, f)
     finally:
         torch.distributed.destroy_process_group()
 
@@ -1728,7 +1801,8 @@ def distributed_path(device, tmp, weights):
     n_img = sum(r["inference"]["images"] for r in res)
     launches_c = {k: sum(r["launches"][k] for r in res) for k in ("forward", "backward")}
     n_batches = sum(len(r["inference"]["batches"]) for r in res)
-    assert launches_c == {"forward": 2 * n_batches, "backward": 0}, launches_c
+    graphs_c = [sum(r["graphs"][i] for r in res) for i in (0, 1)]
+    graphed_launch_check("8c --eval-only at world size 2", launches_c, n_batches, *graphs_c)
     per_rank = [dict(images=r["inference"]["images"],
                      ms_per_img=(r["inference"]["data_s"] + r["inference"]["compute_s"]) * 1e3
                      / r["inference"]["images"],
@@ -1736,7 +1810,8 @@ def distributed_path(device, tmp, weights):
                      / r["inference"]["images"], wall_s=r["wall_s"]) for r in res]
     summary["eval_world2_one_card_gloo"] = dict(
         images=n_img, wall_s=wall, per_rank=per_rank, max_pred_diff=worst,
-        ap_equal=same_ap, launches=launches_c)
+        ap_equal=same_ap, launches=launches_c,
+        graphs=dict(captures=graphs_c[0], replays=graphs_c[1]))
     print(f"  8c --eval-only at world size 2 (gloo, two processes sharing one card): "
           f"{n_img} images, {sum(len(v) for v in got.values())} gathered predictions equal "
           f"phase 7's per image (max |diff| {worst:.1e}), AP dicts equal; per rank "
@@ -1861,15 +1936,16 @@ def resnet_entry_and_eval(device, tmp):
             "OUTPUT_DIR", eval_dir, "DATASETS.TRAIN", str(tuple(SPLITS)),
             "DATASETS.TEST", str((name,)), "TPU.COMPUTE_DTYPE", "bfloat16",
             "TPU.EVAL_BATCH_SIZE", "8", "SEED", "0"]
-    before = _launch_counts()
+    before, graphs_before = _launch_counts(), _graph_counts()
     t0 = time.perf_counter()
     results = train_net.main(argv)
     torch.cuda.synchronize()
     eval_wall = time.perf_counter() - t0
-    after = _launch_counts()
+    after, graphs_after = _launch_counts(), _graph_counts()
     n_batches = len(results[name]["inference"]["batches"])
     eval_launches = {"forward": after[0] - before[0], "backward": after[1] - before[1]}
-    assert eval_launches == {"forward": 2 * n_batches, "backward": 0}, eval_launches
+    graphed_launch_check("ResNet34-FPN --eval-only", eval_launches, n_batches,
+                         *(a - b for a, b in zip(graphs_after, graphs_before)))
     files = os.path.join(eval_dir, "inference", "iter_final")
     assert os.path.exists(os.path.join(files, "omni3d_results.json"))
     assert os.path.exists(os.path.join(files, name, "instances_predictions.pkl"))
@@ -1950,7 +2026,7 @@ def backbones_path(device, tmp, dla_inference, dla_training):
     (summary, launches)."""
     launches = {"forward": 0, "backward": 0}
     print("  9a: ResNet34-FPN (configs/cubercnn_ResNet34_FPN.yaml)")
-    timings, inf_launches, plain = main_path(device, RESNET_CONFIG)
+    timings, inf_launches, _, plain = main_path(device, RESNET_CONFIG)
     _add(launches, {"forward": inf_launches, "backward": 0})
     cfg = _config(RESNET_CONFIG)
     train, train_launches = _train_steps(cfg, device, BACKBONE_TRAIN_BS, WARMUP_STEPS,
@@ -2083,6 +2159,7 @@ def demo_path(device, tmp, weights):
     rcnn3d.multilevel_roi_align, demo.infer = spy, infer
     multilevel_roi_align.launches = 0          # counts of the main path's run only
     multilevel_roi_align.bwd_launches = 0
+    _reset_graph_counts()
     try:
         t0 = time.perf_counter()
         records = demo.main(argv)
@@ -2092,8 +2169,10 @@ def demo_path(device, tmp, weights):
         rcnn3d.multilevel_roi_align, demo.infer = multilevel_roi_align, real_infer
     launches = {"forward": multilevel_roi_align.launches,
                 "backward": multilevel_roi_align.bwd_launches}
-    print(f"  demo: kernel launches {launches} over {len(records)} images")
-    assert launches == {"forward": 2 * len(DEMO_IMAGES), "backward": 0}, launches
+    captures, replays = _graph_counts()
+    print(f"  demo: kernel launches {launches} through the wrappers over {len(records)} images "
+          f"({captures} graphs captured, {replays} replays)")
+    graphed_launch_check("demo", launches, len(DEMO_IMAGES), captures, replays)
     checks = pooler_vs_plain(seen, 1)
     print(f"  demo: forward kernel vs plain pooler on the run's own inputs at {len(checks)} "
           f"(pyramid, boxes) shapes: max|k-p| {max(c['max_abs_err'] for c in checks):.3e}")
@@ -2122,7 +2201,8 @@ def demo_path(device, tmp, weights):
             assert img.shape == shape, (rec["name"], kind, img.shape)
         assert rec["detections"] > 0, rec
         # the demo's inference time holds the first call at the image's
-        # shape; `demo.infer` again at that shape is the steady state
+        # shape (the warm-up and the capture); `demo.infer` again at that
+        # shape replays the graph: the steady state
         steady = []
         for _ in range(DEMO_STEADY_CALLS):
             t0 = time.perf_counter()
@@ -2177,12 +2257,18 @@ def demo_path(device, tmp, weights):
     argv = train_argv(tmp, vis_out, VIS_STEPS, "--weights", weights) + [
         "VIS_PERIOD", str(VIS_PERIOD), "TEST.EVAL_PERIOD", str(VIS_EVAL_PERIOD),
         "DATASETS.TEST", str(tuple(EVAL_SPLITS)), "TPU.EVAL_BATCH_SIZE", "8"]
-    before = _launch_counts()
+    before, graphs_before = _launch_counts(), _graph_counts()
     t0 = time.perf_counter()
     run = train_net.main(argv)
     torch.cuda.synchronize()
     vis_wall = time.perf_counter() - t0
     after = _launch_counts()
+    vis_graphs = tuple(b - a for a, b in zip(graphs_before, _graph_counts()))
+    # the panels and the evaluation captured graphs of the training model,
+    # and do_train dropped them after each
+    if not vis_graphs[0] or run.model.inference_graphs is not None:
+        raise AssertionError(f"train_net with VIS_PERIOD: {vis_graphs} captures / replays, "
+                             f"graphs left on the training model: {run.model.inference_graphs}")
     panels = sorted(os.listdir(os.path.join(vis_out, "vis")))
     want = sorted(f"iter_{i + 1:07d}_gt_vs_pred_{k}.png" for i in range(1, VIS_STEPS)
                   if i % VIS_PERIOD == 0 for k in ("2d", "3d"))
@@ -2214,11 +2300,13 @@ def demo_path(device, tmp, weights):
     summary["train_vis"] = dict(steps=VIS_STEPS, vis_period=VIS_PERIOD, panels=panels,
                                 eval_period=VIS_EVAL_PERIOD, eval_dumps=dumps,
                                 dumps_at_score_0=forced, wall_s=vis_wall,
+                                graphs=dict(zip(("captures", "replays"), vis_graphs)),
                                 launches={"forward": after[0] - before[0],
                                           "backward": after[1] - before[1]})
     print(f"  train_net {VIS_STEPS} iterations, VIS_PERIOD {VIS_PERIOD}, TEST.EVAL_PERIOD "
           f"{VIS_EVAL_PERIOD}: panels {panels}; evaluation sample dumps {dumps} (at score "
-          f"threshold 0: {forced}); wall {vis_wall:.1f} s")
+          f"threshold 0: {forced}); {vis_graphs[0]} graphs captured and {vis_graphs[1]} "
+          f"replays, none left on the training model; wall {vis_wall:.1f} s")
     summary["phase_wall_s"] = time.perf_counter() - t_phase
     print(f"  phase 10 wall {summary['phase_wall_s']:.1f} s")
     return summary, launches
@@ -2283,20 +2371,36 @@ def measurement_path(device):
     (records["bench"], last), launches["bench"] = _counted(lambda: bench.run(
         cfg, BENCH_BATCHES, rounds=BENCH_ROUNDS, iters=BENCH_ITERS, device=device))
     rec = records["bench"]
-    if rec["kernel_launches_per_call"] != {"forward": 2.0, "backward": 0.0}:
-        raise AssertionError(f"bench: launches per call {rec['kernel_launches_per_call']}")
-    if rec["nms_launches_per_call"] != NMS_PER_INFERENCE:
-        raise AssertionError(f"bench: NMS launches per call {rec['nms_launches_per_call']}")
     for row in rec["batch_sizes"]:
-        per_call = row["profile"]["roi_align_launches_per_call"]
-        if per_call != {"roi_align_fwd": 2.0, "roi_align_bwd": 0.0}:
-            raise AssertionError(f"bench bs={row['bs']}: profiled launches {per_call}")
+        # eager calls launch through the wrappers; replays launch the same
+        # kernels with no wrapper call, so their counts come from the
+        # profiler's kernel records, and the capture's from the wrappers
+        checks = {"eager wrapper launches": (row["eager_wrapper_launches_per_call"],
+                                             KERNELS_PER_INFERENCE),
+                  "graphed wrapper launches": (row["wrapper_launches_per_call"],
+                                               dict.fromkeys(KERNELS_PER_INFERENCE, 0)),
+                  "first call's wrapper launches (warm-up and capture)": (
+                      row["graph"]["wrapper_launches"],
+                      {k: 2 * n for k, n in KERNELS_PER_INFERENCE.items()}),
+                  "first call's captures": (row["graph"]["captures"], 1),
+                  "graphed kernel records": (row["profile"]["hand_kernel_launches_per_call"],
+                                             KERNELS_PER_INFERENCE),
+                  "eager kernel records": (row["eager_profile"]["hand_kernel_launches_per_call"],
+                                           KERNELS_PER_INFERENCE)}
+        for what, (got, want) in checks.items():
+            if got != want:
+                raise AssertionError(f"bench bs={row['bs']}: {what}: {got}, not {want}")
         _check_mfu(f"bench bs={row['bs']}", row["mfu"])
+        _check_mfu(f"bench bs={row['bs']} eager", row["eager_mfu"])
+    print(f"  bench: per eager call the wrappers launch {KERNELS_PER_INFERENCE}; per graphed "
+          f"call none, and the kernel records hold {KERNELS_PER_INFERENCE}; graphs "
+          f"{rec['graphs']}")
     model = bench.random_model(cfg, device)
     (_, images, Ks, ratios), got = last[BENCH_BATCHES[-1]]
     _equal_outputs(f"bench bs={BENCH_BATCHES[-1]}", got,
                    rcnn3d.inference(model, images, Ks, ratios, **kw))
-    print(f"  bench bs={BENCH_BATCHES[-1]}: the last call's outputs equal a direct inference call")
+    print(f"  bench bs={BENCH_BATCHES[-1]}: the last graphed call's outputs equal a direct "
+          "inference call")
 
     # the poolers on the bench's largest batch, kernel vs plain
     _, s, _ = profile_stages.stage_chain(model, images, Ks, ratios, **kw)
@@ -2340,6 +2444,9 @@ def measurement_path(device):
     print(f"  profile_stages bs={STAGES_BS}: the stage chain's outputs equal inference's")
     if rec["roi_align_launches_per_call"] != {"roi_align_fwd": 2.0, "roi_align_bwd": 0.0}:
         raise AssertionError(f"profile_stages: profiled launches {rec['roi_align_launches_per_call']}")
+    if rec["graphed_hand_kernel_launches_per_call"] != KERNELS_PER_INFERENCE:
+        raise AssertionError(f"profile_stages: graphed call's kernel records "
+                             f"{rec['graphed_hand_kernel_launches_per_call']}")
     _check_mfu("profile_stages", rec["mfu"])
 
     (records["profile_backbone"], env, (feats, flist)), _ = _counted(
@@ -2600,6 +2707,240 @@ def nms_path(device, build_log):
     return dict(build=facts, cases=rows, host_syncs=syncs)
 
 
+# phase 13: inference_step, one CUDA graph per padded shape
+GRAPH_BATCHES = (1, 8, 32)
+GRAPH_ORDER = (1, 8, 1, 32, 8)      # replays after the captures: A, B, A, C, B
+GRAPH_ALIAS_BS = 8                  # the batch of the aliasing and weight checks
+GRAPH_PROFILED_CALLS = 5
+GRAPH_ROUNDS, GRAPH_ITERS = 3, 5    # eager vs graphed in turns, per dtype and batch
+WEIGHT_NOISE = 0.05                 # load_state_dict: each parameter x (1 + 0.05 N(0, 1))
+
+
+def _predictions(out_dir, name):
+    """The predictions `do_test` wrote for split `name` under `out_dir`."""
+    import pickle
+    with open(os.path.join(out_dir, "inference", "iter_final", name,
+                           "instances_predictions.pkl"), "rb") as f:
+        return pickle.load(f)
+
+
+def _differs(a, b):
+    import torch
+    return any(not torch.equal(a[k], b[k]) for k in a)
+
+
+def graph_path(device, tmp, weights, models, card):
+    """Phase 13: `rcnn3d.inference_step` at full width (phase 3's DLA34-FPN
+    models, f32 with TF32 off and bf16; 512 px; bs 1, 8 and 32) against
+    eager `inference` on the same inputs, with the launch counts at 0 just
+    before. Checks, each raising: every output bit-equal to eager at the
+    first call (the eager warm-up) and at replays in the order GRAPH_ORDER
+    (A, B, A over two shapes); the first call at each shape (the warm-up and
+    the capture) launched 4 forward, 0 backward and 4 + 4 NMS kernels
+    through the wrappers; per replayed call the profiler's kernel records
+    hold 2 / 0 / 2 + 2; no synchronising call inside a replay
+    (`set_sync_debug_mode("error")`); an earlier call's outputs unchanged by
+    a later call at the same shape on other images; after `load_state_dict`
+    of other seeded weights the replay (no new capture) equals eager with
+    those weights; a parameter rebound to new storage raises the recapture
+    count and the new graph equals eager; phase 7's `--eval-only`
+    predictions (through `inference_step`) equal an eager run's from the
+    same checkpoint at both batch sizes. Prints, with no pass or fail: the
+    first call's ms per shape (eager warm-up and capture), the pool's
+    bytes, and eager vs graphed ms per call and busy share in turns. Returns
+    (summary, wrapper launches during the phase, the replays: their count
+    and the hand-written kernels' records in the profiled ones)."""
+    import torch
+    from omni3d_tpu_torch.engine import loop
+    from omni3d_tpu_torch.models import rcnn3d
+    from omni3d_tpu_torch.ops.roi_align_cuda import multilevel_roi_align
+    from omni3d_tpu_torch.tools import train_net
+    from omni3d_tpu_torch.utils import benchtime as bt
+
+    t0 = time.perf_counter()
+    cfg = _config("cubercnn_DLA34_FPN.yaml")
+    kw = rcnn3d.inference_kwargs(cfg)
+    C = cfg.MODEL.ROI_HEADS.NUM_CLASSES
+    multilevel_roi_align.launches = 0          # counts of this path's run only
+    multilevel_roi_align.bwd_launches = 0
+    _reset_nms_counts()
+    _reset_graph_counts()
+    summary = {"card": card}
+    profiled = dict(replays=0, kernel_records=dict.fromkeys(KERNELS_PER_INFERENCE, 0))
+
+    def profile_replays(fn):
+        """`device_profile` of GRAPH_PROFILED_CALLS replays of `fn`, adding
+        their kernel records to `profiled`."""
+        prof = bt.device_profile(fn, GRAPH_PROFILED_CALLS, device)
+        profiled["replays"] += GRAPH_PROFILED_CALLS
+        for k, n in prof["hand_kernel_launches_per_call"].items():
+            profiled["kernel_records"][k] += round(n * GRAPH_PROFILED_CALLS)
+        return prof
+
+    for dtype, model in models.items():
+        name = str(dtype).replace("torch.", "")
+        model.inference_graphs = None           # phase 13 captures its own graphs
+        data = {bs: main_path_inputs(cfg, bs, device) for bs in GRAPH_BATCHES}
+        eager = {bs: rcnn3d.inference(model, *data[bs], **kw) for bs in GRAPH_BATCHES}
+
+        def step(bs, d=None):
+            return rcnn3d.inference_step(model, *(data[bs] if d is None else d), **kw)
+        shapes = {}
+        counts0 = _graph_counts()
+        for bs in GRAPH_BATCHES:
+            check_outputs(eager[bs], bs, kw["topk"], C)
+            torch.cuda.synchronize()
+            before, t1 = rcnn3d.kernel_launch_counts(), time.perf_counter()
+            got = step(bs)                       # the eager warm-up and the capture
+            torch.cuda.synchronize()
+            first_ms = (time.perf_counter() - t1) * 1e3
+            after = rcnn3d.kernel_launch_counts()
+            launched = {k: after[k] - before[k] for k in after}
+            if launched != {k: 2 * n for k, n in KERNELS_PER_INFERENCE.items()}:
+                raise AssertionError(f"{name} bs={bs}: the first call (warm-up and capture) "
+                                     f"launched {launched}")
+            _equal_outputs(f"{name} bs={bs} first inference_step call", got, eager[bs])
+            shapes[bs] = dict(first_call_ms=first_ms, first_call_wrapper_launches=launched)
+        graphs = model.inference_graphs
+        for bs in GRAPH_ORDER:
+            _equal_outputs(f"{name} bs={bs} replay", step(bs), eager[bs])
+        counts = tuple(b - a for a, b in zip(counts0, _graph_counts()))
+        assert counts == (len(GRAPH_BATCHES), len(GRAPH_ORDER)), counts
+        for bs in GRAPH_BATCHES:
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")   # raises on a synchronising call
+            try:
+                step(bs)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            prof = profile_replays(lambda bs=bs: step(bs))
+            if prof["hand_kernel_launches_per_call"] != KERNELS_PER_INFERENCE:
+                raise AssertionError(f"{name} bs={bs}: kernel records per replayed call "
+                                     f"{prof['hand_kernel_launches_per_call']}")
+            shapes[bs].update(kernels_per_replay=prof["kernels_per_call"],
+                              hand_kernels_per_replay=prof["hand_kernel_launches_per_call"])
+        print(f"  {name}: outputs bit-equal to eager at bs {GRAPH_BATCHES} (first calls) and "
+              f"at replays in the order {GRAPH_ORDER}; per replayed call the kernel records "
+              f"hold {KERNELS_PER_INFERENCE}; no synchronising call in a replay")
+
+        # eager vs graphed in turns (no pass or fail)
+        cases = {}
+        for bs in GRAPH_BATCHES:
+            cases[("graphed", bs)] = lambda bs=bs: bt.timed_calls(lambda: step(bs), GRAPH_ITERS)
+            cases[("eager", bs)] = lambda bs=bs: bt.timed_calls(
+                lambda: rcnn3d.inference(model, *data[bs], **kw), GRAPH_ITERS)
+        times = bt.in_turns(cases, GRAPH_ROUNDS)
+        for bs in GRAPH_BATCHES:
+            row = shapes[bs]
+            for mode in ("eager", "graphed"):
+                prof = (profile_replays(lambda bs=bs: step(bs)) if mode == "graphed" else
+                        bt.device_profile(lambda bs=bs: rcnn3d.inference(model, *data[bs], **kw),
+                                          GRAPH_PROFILED_CALLS, device))
+                t = times[(mode, bs)]
+                row[mode] = dict(ms=t, device_busy_ms=prof["device_busy_ms_per_call"],
+                                 busy_share=bt.busy_share(prof, t["median_ms"]),
+                                 kernels_per_call=prof["kernels_per_call"])
+            print(f"  {name} bs={bs}: first call (warm-up and capture) "
+                  f"{row['first_call_ms']:.1f} ms; ms per call eager "
+                  f"{row['eager']['ms']['median_ms']:.2f} ({row['eager']['ms']['min_ms']:.2f}-"
+                  f"{row['eager']['ms']['max_ms']:.2f}), busy "
+                  f"{100 * row['eager']['busy_share']:.0f}%; graphed "
+                  f"{row['graphed']['ms']['median_ms']:.2f} ({row['graphed']['ms']['min_ms']:.2f}"
+                  f"-{row['graphed']['ms']['max_ms']:.2f}), busy "
+                  f"{100 * row['graphed']['busy_share']:.0f}%, device "
+                  f"{row['graphed']['device_busy_ms']:.2f} ms; {card}")
+        pool = graphs.pool_bytes()
+        print(f"  {name}: the graphs' pool holds {pool / 2 ** 20:.1f} MiB; {card}")
+
+        # no aliasing: a later call at the same shape leaves an earlier result
+        bs = GRAPH_ALIAS_BS
+        other = (data[bs][0].flip(2).contiguous(),) + data[bs][1:]
+        want_other = rcnn3d.inference(model, *other, **kw)
+        if not _differs(want_other, eager[bs]):
+            raise AssertionError("the flipped images give the same outputs: no aliasing test")
+        first, second = step(bs), step(bs, other)
+        _equal_outputs(f"{name} bs={bs} first of two replays", first, eager[bs])
+        _equal_outputs(f"{name} bs={bs} second of two replays", second, want_other)
+
+        # weights written in place are seen; no new capture
+        gen = torch.Generator().manual_seed(1)
+        state = model.state_dict()
+        for k, p in model.named_parameters():
+            noise = 1 + WEIGHT_NOISE * torch.randn(p.shape, generator=gen)
+            state[k] = (p.detach().float().cpu() * noise).to(p.dtype)
+        model.load_state_dict(state)
+        captures = _graph_counts()[0]
+        got, want = step(bs), rcnn3d.inference(model, *data[bs], **kw)
+        _equal_outputs(f"{name} bs={bs} after load_state_dict", got, want)
+        assert _graph_counts()[0] == captures and graphs.recaptures == 0, \
+            (_graph_counts(), graphs.recaptures)
+        if not _differs(want, eager[bs]):
+            raise AssertionError("the reloaded weights give the same outputs")
+
+        # a parameter rebound to new storage: the graphs are captured again
+        p = next(model.roi_heads.box_predictor.parameters())
+        p.data = p.data * 0.5
+        got, want = step(bs), rcnn3d.inference(model, *data[bs], **kw)
+        assert graphs.recaptures == 1 and _graph_counts()[0] == captures + 1, \
+            (graphs.recaptures, _graph_counts())
+        _equal_outputs(f"{name} bs={bs} after rebinding", got, want)
+        got = step(bs)                           # and the new graph replays
+        _equal_outputs(f"{name} bs={bs} replay after rebinding", got, want)
+        print(f"  {name} bs={bs}: an earlier result unchanged by a later call; after "
+              "load_state_dict the replay equals eager with the new weights (no capture); a "
+              "rebound parameter recaptured (recaptures 1), then equal to eager")
+        summary[name] = dict(shapes=shapes, pool_bytes=pool, recaptures=graphs.recaptures,
+                             **dict(zip(("captures", "replays"),
+                                        (b - a for a, b in zip(counts0, _graph_counts())))))
+        model.inference_graphs = None
+        del data, eager, got, want, first, second
+        torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    launches = {"forward": multilevel_roi_align.launches,
+                "backward": multilevel_roi_align.bwd_launches, **_nms_counts()}
+    captures, replays = _graph_counts()
+    replayed = dict(replays=replays, profiled_replays=profiled["replays"],
+                    kernel_records_in_profiled_replays=profiled["kernel_records"])
+    print(f"  wrapper launches in phase 13's graphed run {launches} ({captures} captures, "
+          f"{replays} replays; the hand-written kernels' records in the "
+          f"{profiled['replays']} profiled replays {profiled['kernel_records']})")
+    if launches["backward"] or 0 in (launches["forward"], launches["suppression_words"],
+                                     launches["greedy_keep"]):
+        raise AssertionError(f"phase 13: wrapper launches {launches}")
+
+    # phase 7's graphed --eval-only predictions against an eager run
+    real = loop.inference_step
+    for bs in EVAL_BATCH_SIZES:
+        out_dir = os.path.join(tmp, f"eval_eager_bs{bs}")
+        loop.inference_step = rcnn3d.inference
+        try:
+            train_net.main(eval_argv(device, tmp, weights, bs, out_dir))
+        finally:
+            loop.inference_step = real
+        n = 0
+        for name in EVAL_SPLITS:
+            got, want = (_predictions(d, name) for d in (os.path.join(tmp, f"eval_bs{bs}"),
+                                                         out_dir))
+            if got != want:
+                raise AssertionError(f"--eval-only bs {bs} {name}: the graphed predictions "
+                                     f"differ from the eager run's")
+            n += len(got)
+        print(f"  --eval-only bs {bs}: phase 7's {n} predictions (inference_step) equal an "
+              "eager run's from the same checkpoint")
+    summary["eval_predictions_equal_eager"] = list(EVAL_BATCH_SIZES)
+    summary["phase_wall_s"] = time.perf_counter() - t0
+    print(f"  phase 13 took {summary['phase_wall_s']:.1f} s")
+    return summary, launches, replayed
+
+
+def replay_records(replayed, kernel):
+    """Phase 13's replays for one kernel's entry of the kernels line: the
+    replays counted, how many of them were profiled, and the kernel's records
+    in those (a replay runs no wrapper, so `launches` leaves them out)."""
+    return dict(replays=replayed["replays"], profiled_replays=replayed["profiled_replays"],
+                kernel_records=replayed["kernel_records_in_profiled_replays"][kernel])
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2618,7 +2959,7 @@ def main():
           f"{torch.cuda.get_device_name(0)}; TF32 off (cuDNN and matmul)")
 
     from omni3d_tpu_torch.utils import cuda_build
-    print("[1/12] build")
+    print("[1/13] build")
     path, secs, build_log = cuda_build.build()
     print(f"  {os.path.relpath(path, ROOT)} built in {secs:.1f} s")
     for line in build_log.splitlines():
@@ -2629,45 +2970,49 @@ def main():
         gate_probe(device, int(sys.argv[2]))
         return
 
-    print("[2/12] forward kernel vs plain PyTorch version")
+    print("[2/13] forward kernel vs plain PyTorch version")
     main_case, worst = kernel_vs_plain(device)
 
-    print("[3/12] inference main path: DLA34-FPN inference at 512 px")
-    timings, launches, inference_check = main_path(device)
+    print("[3/13] inference main path: DLA34-FPN inference at 512 px")
+    timings, launches, models, inference_check = main_path(device)
 
-    print("[4/12] backward kernel vs plain PyTorch version")
+    print("[4/13] backward kernel vs plain PyTorch version")
     worst_bwd = bwd_vs_plain(device)
     at_train = time_kernels_at_train_shape(device)
 
-    print("[5/12] training main path: DLA34-FPN training steps at 512 px")
+    print("[5/13] training main path: DLA34-FPN training steps at 512 px")
     train_rows, train_launches, plain_cmp = train_path(device)
 
     with tempfile.TemporaryDirectory() as tmp:
-        print("[6/12] training entry point: tools.train_net on a synthetic Omni3D-format dataset")
+        print("[6/13] training entry point: tools.train_net on a synthetic Omni3D-format dataset")
         entry, entry_launches, weights = entry_point_path(device, tmp)
 
-        print("[7/12] evaluation: tools.train_net --eval-only on synthetic test splits")
+        print("[7/13] evaluation: tools.train_net --eval-only on synthetic test splits")
         evaluation, eval_launches = evaluation_path(device, tmp, weights)
 
-        print("[8/12] data parallelism: DDP over NCCL at world size 1, two ranks on the card "
+        print("[8/13] data parallelism: DDP over NCCL at world size 1, two ranks on the card "
               "over gloo, --eval-only at world size 2")
         distributed, ddp_launches = distributed_path(device, tmp, weights)
 
-        print("[9/12] other backbones at full width: ResNet34-FPN as phases 3 and 5-7 drive "
+        print("[9/13] other backbones at full width: ResNet34-FPN as phases 3 and 5-7 drive "
               "DLA-34, then every other builder and DLA variant")
         backbones, bb_launches = backbones_path(device, tmp, timings, train_rows)
 
-        print("[10/12] the demo: JPEG fixtures, tools.demo at full width, render_depth_map on "
+        print("[10/13] the demo: JPEG fixtures, tools.demo at full width, render_depth_map on "
               "the card, train_net with VIS_PERIOD and TEST.EVAL_PERIOD")
         demo, demo_launches = demo_path(device, tmp, weights)
 
-    print("[11/12] the measurement tools: tools.bench at bs 1 / 8 / 32, tools.bench_train at "
-          "bf16 bs 32, tools.profile_stages, tools.profile_backbone")
-    measurement, tool_launches, tools_pooler_err = measurement_path(device)
+        print("[11/13] the measurement tools: tools.bench at bs 1 / 8 / 32, tools.bench_train "
+              "at bf16 bs 32, tools.profile_stages, tools.profile_backbone")
+        measurement, tool_launches, tools_pooler_err = measurement_path(device)
 
-    print("[12/12] the NMS kernels vs plain PyTorch version; host syncs of the proposal and "
-          "detection NMS")
-    nms = nms_path(device, build_log)
+        print("[12/13] the NMS kernels vs plain PyTorch version; host syncs of the proposal "
+              "and detection NMS")
+        nms = nms_path(device, build_log)
+
+        print("[13/13] inference_step: one CUDA graph per padded shape at full width, f32 and "
+              "bf16 at bs 1 / 8 / 32, against eager inference")
+        graphs, graph_launches, graph_replayed = graph_path(device, tmp, weights, models, card)
 
     bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "omni3d_tpu")]
     assert not bad, bad
@@ -2680,6 +3025,7 @@ def main():
     print("demo: " + json.dumps(demo))
     print("measurement: " + json.dumps(measurement))
     print("nms: " + json.dumps(nms))
+    print("graphs: " + json.dumps(graphs))
     # phase 9's kernel-vs-plain checks on ResNet-34's own pooler inputs (its
     # random-weight maps are larger than DLA-34's, so are the absolute errors)
     bb_pooler = backbones["resnet34"]["training"]["first_pooler_call_vs_plain"]
@@ -2694,14 +3040,17 @@ def main():
         "launches": (launches + train_launches["forward"] + entry_launches["forward"]
                      + eval_launches["forward"] + ddp_launches["forward"]
                      + bb_launches["forward"] + demo_launches["forward"]
-                     + sum(n["forward"] for n in tool_launches.values())),
+                     + sum(n["forward"] for n in tool_launches.values())
+                     + graph_launches["forward"]),
         "launches_by_path": {"inference": launches, "training": train_launches["forward"],
                              "training_entry_point": entry_launches["forward"],
                              "evaluation": eval_launches["forward"],
                              "distributed": ddp_launches["forward"],
                              "backbones": bb_launches["forward"],
                              "demo": demo_launches["forward"],
-                             **{k: n["forward"] for k, n in tool_launches.items()}},
+                             **{k: n["forward"] for k, n in tool_launches.items()},
+                             "graphs": graph_launches["forward"]},
+        "graph_replays": replay_records(graph_replayed, "roi_align_fwd"),
         "max_abs_err": max(worst, at_train["fwd_max_abs_err"], tools_pooler_err,
                            evaluation["roi_align_fwd_max_abs_err"],
                            max(c["max_abs_err"] for c in demo["demo"]["pooler_vs_plain"]),
@@ -2731,7 +3080,9 @@ def main():
                              "distributed": ddp_launches["backward"],
                              "backbones": bb_launches["backward"],
                              "demo": demo_launches["backward"],
-                             **{k: n["backward"] for k, n in tool_launches.items()}},
+                             **{k: n["backward"] for k, n in tool_launches.items()},
+                             "graphs": graph_launches["backward"]},
+        "graph_replays": replay_records(graph_replayed, "roi_align_bwd"),
         "max_abs_err": max(worst_bwd, at_train["bwd_max_abs_err"],
                            distributed["two_ranks_one_card_gloo"]["bwd_max_abs_err"],
                            bb_pooler["bwd_max_abs_err"]),
@@ -2744,10 +3095,12 @@ def main():
         "bit_reproducible": True,
         "backbones_vs_plain": {"resnet34_bf16_train_step": {
             k: bb_pooler[k] for k in ("bwd_max_abs_err", "bwd_f32_tol")}},
-    }] + [nms_kernel_entry(kernel, nms["cases"], {
+    }] + [dict(nms_kernel_entry(kernel, nms["cases"], {
         "inference": inference_check["nms_launches"][kernel],
         "training": train_launches[kernel],
-        **{k: n[kernel] for k, n in tool_launches.items()}}, nms["build"])
+        **{k: n[kernel] for k, n in tool_launches.items()},
+        "graphs": graph_launches[kernel]}, nms["build"]),
+        graph_replays=replay_records(graph_replayed, kernel))
         for kernel in ("suppression_words", "greedy_keep")]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

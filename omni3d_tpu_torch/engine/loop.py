@@ -19,6 +19,8 @@ TEST.EVAL_PERIOD iterations `eval_fn` evaluates the training model in eval
 mode, and its modes come back unchanged. Every VIS_PERIOD iterations rank 0
 runs the training model in eval mode on the batch's first image and writes
 GT-vs-prediction panels (`visualize_training`) under <output_dir>/vis/.
+The inference graphs that either captures on the card are dropped when it
+returns, so the training step never runs beside their memory pool.
 
 Under a process group (one process per GPU, `parallel.init_distributed`)
 each rank loads IMS_PER_BATCH / world images per step and the step runs
@@ -53,7 +55,7 @@ from ..data.mapper import batch_to_device
 from ..evaluation.error_stats import (compute_error_stats, error_log_string,
                                      visualize_from_predictions)
 from ..evaluation.omni3d_eval import Omni3DEvaluationHelper, instances_to_predictions
-from ..models.rcnn3d import build_model, inference, inference_kwargs
+from ..models.rcnn3d import build_model, inference_kwargs, inference_step
 from ..parallel import dist as dist_lib
 from ..solver.build import build_lr_schedule, build_optimizer
 from ..utils import checkpoint as ckpt
@@ -171,13 +173,15 @@ def build_eval_model(cfg, device="cuda", seed: int | None = None):
 
 def visualize_training(cfg, model, batch, storage) -> dict:
     """GT-vs-prediction panels of the first image of the device `batch`
-    (reference meta_arch/rcnn3d.py:70-72,114-245): an eval-mode inference
-    of the training model (its modes come back unchanged), then
+    (reference meta_arch/rcnn3d.py:70-72,114-245): an eval-mode
+    `inference_step` of the training model (its modes come back unchanged;
+    on the card a graph per padded shape that casts the float32 master
+    weights per call and so sees every optimizer step), then
     `vis.visualize_training_sample`; written as `gt_vs_pred_2d` and
     `gt_vs_pred_3d` through `storage.put_image`. Returns the panels."""
     with eval_mode(model):
-        out = inference(model, batch["images"][0:1], batch["Ks"][0:1], batch["ratios"][0:1],
-                        hw=batch["hw"][0:1], **inference_kwargs(cfg))
+        out = inference_step(model, batch["images"][0:1], batch["Ks"][0:1],
+                             batch["ratios"][0:1], hw=batch["hw"][0:1], **inference_kwargs(cfg))
     det = {k: v[0] for k, v in _to_host(out).items()}
     det["boxes"] = out["boxes"][0].float().cpu().numpy()
     host = {k: v[0:1].detach().float().cpu().numpy() for k, v in batch.items()
@@ -189,7 +193,7 @@ def visualize_training(cfg, model, batch, storage) -> dict:
     return panels
 
 
-# the outputs of `inference` that become predictions
+# the outputs of `inference_step` that become predictions
 _PREDICTION_KEYS = ("boxes_orig", "classes", "scores", "valid", "center_cam", "dims", "pose",
                     "corners", "center_2D")
 
@@ -214,7 +218,9 @@ def run_inference_dataset(cfg, model, dataset_name, id_map):
 
     Batches of TPU.EVAL_BATCH_SIZE images from `build_detection_test_loader`
     go to the device as uint8, are normalised there and run through
-    `models.rcnn3d.inference`; the outputs come back in one copy per batch.
+    `models.rcnn3d.inference_step` (on the card one CUDA graph per padded
+    shape, the test loader pads the tail batch to the full batch); the
+    outputs come back in one copy per batch.
     Under a process group the loader takes this rank's shard (every
     world-th image), and every rank gets all predictions in rank order
     (`parallel.gather_objects`), numbered 1..n in that order.
@@ -236,8 +242,8 @@ def run_inference_dataset(cfg, model, dataset_name, id_map):
     for host_batch, records in loader:
         t1 = time.perf_counter()
         batch = batch_to_device(host_batch, device, cfg.MODEL.PIXEL_MEAN, cfg.MODEL.PIXEL_STD)
-        out = _to_host(inference(model, batch["images"], batch["Ks"], batch["ratios"],
-                                 hw=batch["hw"], **kw))
+        out = _to_host(inference_step(model, batch["images"], batch["Ks"], batch["ratios"],
+                                      hw=batch["hw"], **kw))
         t2 = time.perf_counter()
         t_data += t1 - t0
         t_compute += t2 - t1
@@ -481,12 +487,17 @@ def do_train(cfg, output_dir: str, resume: bool = False, max_steps: int | None =
                     visualize_training(cfg, model, batch, storage)
                 except Exception as e:  # vis must never kill a training run
                     print(f"[train] visualization failed: {e!r}")
+                finally:
+                    model.inference_graphs = None   # their pool would stay beside the step's
             if main:
                 checkpointer.step(iteration, lambda: train_state(run), {"iteration": iteration})
             if (eval_fn is not None and cfg.TEST.EVAL_PERIOD > 0
                     and (iteration + 1) % cfg.TEST.EVAL_PERIOD == 0):
-                with eval_mode(model):
-                    eval_fn(model, iteration)
+                try:
+                    with eval_mode(model):
+                        eval_fn(model, iteration)
+                finally:
+                    model.inference_graphs = None
     finally:
         if profile is not None:
             profile.stop(len(run.iterations))

@@ -6,9 +6,15 @@ priors_*}), so a state dict from `utils.checkpoint.state_dict_from_flax`
 loads with strict=True, in inference and in training mode alike.
 `inference` is the counterpart of the JAX package's `inference_impl`: the
 same arguments, the same padded fixed-size outputs and keys. Both poolers go
-through `ops.roi_align_cuda`. The training losses live in `engine.train`.
+through `ops.roi_align_cuda`. `inference_step` is the counterpart of the JAX
+package's `inference_step` (`jax.jit` of `inference_impl`): on CUDA tensors
+one CUDA graph of `inference` per padded shape and static setting, replayed.
+The training losses live in `engine.train`.
 """
 from __future__ import annotations
+
+import inspect
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -105,6 +111,7 @@ class CubeRCNN(nn.Module):
             {"rpn_head": RPNHead(num_anchors, out_ch, dtype=pdtype)})
         self.roi_heads = ROIHeads(cfg, out_ch, dtype=pdtype)
         self._anchors = {}
+        self.inference_graphs = None   # `InferenceGraphs`, made by the first CUDA `inference_step`
 
     def train(self, mode: bool = True):
         super().train(mode)
@@ -187,6 +194,16 @@ def preprocess(images_bgr: torch.Tensor, pixel_mean, pixel_std) -> torch.Tensor:
     return (images_bgr.float() - mean) / std
 
 
+def padded_hw(B: int, H: int, W: int, device) -> torch.Tensor:
+    """(B, 2) float32 rows (H, W): the padded size as every image's size,
+    filled on the device (a copy from the host would block, and a CUDA graph
+    cannot capture it)."""
+    hw = torch.empty((B, 2), dtype=torch.float32, device=device)
+    hw[:, 0] = H
+    hw[:, 1] = W
+    return hw
+
+
 def inference_kwargs(cfg) -> dict:
     """Inference settings from the config (same keys as the JAX package's
     `inference_kwargs`); pass as **inference_kwargs(cfg) to `inference`."""
@@ -247,8 +264,8 @@ def inference(model: CubeRCNN, images, Ks, im_scales_ratio, hw=None, oracle=None
 
     logits, deltas = model.proposal_generator["rpn_head"]([feats[f] for f in FEATURE_NAMES])
     anchors = model.anchors([(f.shape[1], f.shape[2]) for f in flist], images.device)
-    image_hw = (torch.tensor([H, W], dtype=torch.float32, device=images.device).expand(B, 2)
-                if hw is None else torch.as_tensor(hw, dtype=torch.float32, device=images.device))
+    image_hw = (padded_hw(B, H, W, images.device) if hw is None
+                else torch.as_tensor(hw, dtype=torch.float32, device=images.device))
     prop_boxes, _, prop_valid = select_proposals(
         anchors, [l.float() for l in logits], [d.float() for d in deltas], image_hw,
         pre_nms_topk, post_nms_topk, rpn_nms_thresh)
@@ -328,3 +345,183 @@ def decode_outputs(model, dets, cube_out, Ks, im_scales_ratio, prop_boxes, prop_
         "proposal_boxes": prop_boxes,
         "proposal_valid": prop_valid,
     }
+
+
+# `inference`'s static arguments and their defaults: with the shapes, dtypes
+# and devices of the tensors, the counterpart of `jax.jit`'s static argnames
+_STATIC_DEFAULTS = {name: p.default for name, p in inspect.signature(inference).parameters.items()
+                    if p.default is not inspect.Parameter.empty and name not in ("hw", "oracle")}
+
+
+def _spec(t):
+    return None if t is None else (tuple(t.shape), t.dtype, t.device)
+
+
+def graph_key(model: CubeRCNN, images, Ks, im_scales_ratio, hw=None, oracle=None,
+              **inference_kwargs) -> tuple:
+    """What a graph of `inference_step` is captured for: the shapes, dtypes
+    and devices of the tensors, whether `hw` and `oracle` are given, every
+    static keyword (defaults filled in), the training flags of the model's
+    modules and the math settings the captured kernels were chosen under
+    (TF32, cuDNN's deterministic and benchmark modes). Equal keys replay one
+    graph."""
+    return _graph_key(list(model.modules()), images, Ks, im_scales_ratio, hw, oracle,
+                      inference_kwargs)
+
+
+def _graph_key(modules, images, Ks, im_scales_ratio, hw, oracle, inference_kwargs):
+    unknown = set(inference_kwargs) - set(_STATIC_DEFAULTS)
+    if unknown:
+        raise TypeError(f"inference_step got unexpected keywords {sorted(unknown)}")
+    return (_spec(images), _spec(Ks), _spec(im_scales_ratio), _spec(hw),
+            None if oracle is None else tuple(_spec(t) for t in oracle),
+            tuple(sorted({**_STATIC_DEFAULTS, **inference_kwargs}.items())),
+            tuple(m.training for m in modules),
+            (torch.backends.cudnn.allow_tf32, torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark, torch.get_float32_matmul_precision()))
+
+
+def parameter_storage(model: nn.Module) -> tuple:
+    """The addresses of every parameter and buffer: a graph reads them there.
+    In-place writes (an optimizer step, `load_state_dict`) keep them; a
+    tensor rebound to new storage, or a submodule replaced, changes them."""
+    return _storage(model.modules())
+
+
+def _storage(modules) -> tuple:
+    return tuple(t.data_ptr() for m in modules
+                 for d in (m._parameters, m._buffers) for t in d.values() if t is not None)
+
+
+@dataclass
+class _Graph:
+    graph: torch.cuda.CUDAGraph
+    inputs: list            # static input buffers, in `inference`'s argument order
+    outputs: dict           # static outputs of the capture
+
+
+def kernel_launch_counts() -> dict:
+    """The hand-written kernels' wrapper counters, by kernel (the names of
+    `utils.benchtime.HAND_KERNELS`). Eager calls, graph warm-ups and
+    captures launch through the wrappers; a replay runs none of them."""
+    # the ops module's own wrapper: callers may stand in for this module's name
+    from ..ops import nms_cuda, roi_align_cuda
+    pool = roi_align_cuda.multilevel_roi_align
+    return {"roi_align_fwd": pool.launches, "roi_align_bwd": pool.bwd_launches,
+            "suppression_words": nms_cuda.suppression_words.launches,
+            "greedy_keep": nms_cuda.greedy_keep.launches}
+
+
+class InferenceGraphs:
+    """The CUDA graphs of one model's `inference_step`, one per `graph_key`.
+
+    The first call for a key runs `inference` eagerly on the caller's inputs
+    on this cache's side stream (cuDNN's algorithm choice, the anchor cache,
+    the kernels' shared-memory attributes and the per-shape constants are
+    made there, outside any capture) and returns that result; then it
+    captures one graph on the same stream into static input buffers. Later
+    calls copy the inputs into the buffers, replay, and return clones of the
+    static outputs, so an earlier result is never overwritten. All graphs
+    share one memory pool; every graph's static inputs and outputs stay
+    referenced, so no graph's capture reuses another's live buffers, and
+    graphs replay in any order (never concurrently: one stream). The graphs
+    read the weights in place: an optimizer step or `load_state_dict` is
+    seen by the next replay. A parameter or buffer rebound to new storage
+    drops every graph (`recaptures` counts it); they are captured again.
+    A failed capture or replay raises; nothing falls back to eager."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.stream = torch.cuda.Stream(device)
+        self.pool = torch.cuda.graph_pool_handle()
+        self.graphs: dict[tuple, _Graph] = {}
+        self.storage = None
+        self.recaptures = 0     # times a rebound parameter or buffer dropped the graphs
+
+    def __call__(self, model, storage, key, args, kw):
+        if self.graphs and storage != self.storage:
+            self.graphs.clear()
+            self.pool = torch.cuda.graph_pool_handle()   # the old pool frees with its graphs
+            self.recaptures += 1
+        entry = self.graphs.get(key)
+        if entry is None:
+            self.storage = storage
+            return self._capture(model, key, args, kw)
+        for dst, src in zip(entry.inputs, _flat(args)):
+            dst.copy_(src)
+        entry.graph.replay()
+        inference_step.replays += 1
+        return {k: v.clone() for k, v in entry.outputs.items()}
+
+    def _capture(self, model, key, args, kw):
+        current = torch.cuda.current_stream()
+        # the side stream starts after the caller's work, and the caller's
+        # stream after the warm-up; its blocks are next used by this stream
+        # only after a wait on the caller's stream, so no record_stream
+        self.stream.wait_stream(current)
+        with torch.cuda.stream(self.stream):
+            out = inference(model, *args[:4], oracle=args[4], **kw)
+        current.wait_stream(self.stream)
+        static = [t.clone(memory_format=torch.contiguous_format) for t in _flat(args)]
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, pool=self.pool, stream=self.stream,
+                              capture_error_mode="thread_local"):
+            outputs = inference(model, *_unflat(static, args), **kw)
+        self.graphs[key] = _Graph(graph, static, outputs)
+        inference_step.captures += 1
+        return out
+
+    def pool_bytes(self) -> int:
+        """Bytes of the device memory segments the graphs' pool holds."""
+        pool = tuple(self.pool)
+        return sum(s["total_size"] for s in torch.cuda.memory_snapshot()
+                   if tuple(s.get("segment_pool_id") or ()) == pool)
+
+
+def _flat(args):
+    """The tensors of (images, Ks, im_scales_ratio, hw, oracle), in order."""
+    *head, hw, oracle = args
+    return [*head, *([] if hw is None else [hw]), *(oracle or ())]
+
+
+def _unflat(static, args):
+    """`inference`'s positional arguments (images, Ks, im_scales_ratio, hw,
+    oracle) over the static buffers `static` laid out by `_flat(args)`."""
+    head, rest = static[:3], static[3:]
+    hw = None
+    if args[3] is not None:
+        hw, rest = rest[0], rest[1:]
+    return (*head, hw, None if args[4] is None else tuple(rest))
+
+
+def inference_step(model: CubeRCNN, images, Ks, im_scales_ratio, hw=None, oracle=None,
+                   **inference_kwargs):
+    """`inference` as one CUDA graph per `graph_key` (the counterpart of the
+    JAX package's `inference_step`, `jax.jit` of `inference_impl`): the same
+    arguments and the same padded output dict, with fresh tensors on every
+    call. CUDA tensors go through the model's `InferenceGraphs` (made at
+    the first call); CPU tensors run `inference` itself, with no capture.
+    `hw` becomes a float32 tensor on the images' device ahead of the key, so
+    it is a graph input. `inference_step.captures` and `.replays` count this
+    process's graph captures and replays (the kernels' wrappers count their
+    launches during warm-ups and captures only: a replay runs no Python)."""
+    if images.device.type != "cuda":
+        return inference(model, images, Ks, im_scales_ratio, hw=hw, oracle=oracle,
+                         **inference_kwargs)
+    if hw is not None:
+        hw = torch.as_tensor(hw, dtype=torch.float32, device=images.device)
+    modules = list(model.modules())
+    key = _graph_key(modules, images, Ks, im_scales_ratio, hw, oracle, inference_kwargs)
+    with torch.no_grad(), torch.cuda.device(images.device):
+        if model.inference_graphs is None:
+            model.inference_graphs = InferenceGraphs(images.device)
+        elif model.inference_graphs.device != images.device:
+            raise ValueError(f"the model's graphs are on {model.inference_graphs.device}, "
+                             f"the inputs on {images.device}")
+        return model.inference_graphs(model, _storage(modules), key,
+                                      (images, Ks, im_scales_ratio, hw, oracle),
+                                      {**_STATIC_DEFAULTS, **inference_kwargs})
+
+
+inference_step.captures = 0
+inference_step.replays = 0

@@ -16,21 +16,30 @@ Settings: `**inference_kwargs(cfg)`, the configs' settings (adaptive
 sampling, TPU.ROI_SAMPLING_RATIO 0). This departs from `bench.py`, which
 calls `inference_impl` with its defaults (sampling_ratio=2).
 
-Timing (`utils.benchtime`): per batch size the first call timed apart (cuDNN
-picks its algorithms per shape), then 2 warm-up calls; then --rounds rounds
-of --iters back-to-back calls per batch size, the batch sizes in turns, on
-the host clock ended by one synchronise. Per batch size it reports the
-median / min / max ms per batch and img/s, the first call's ms, one
-profiled round (device busy ms per call, and its share of the median ms;
-kernels per call; the ROIAlign kernels' launches per call), the ROIAlign
-and NMS kernels' launches per call by their wrappers' counts, the model
-FLOPs per image and `mfu`, the peak memory,
-and the mean valid proposals and detections per image (random weights set
-the NMS depth and the detection count, so the work done is shown).
+Timing (`utils.benchtime`): the timed call is `rcnn3d.inference_step`, the
+counterpart of `bench.py`'s compiled calls: one CUDA graph per batch size,
+replayed. Eager `rcnn3d.inference` is timed beside it, in turns. Per batch
+size the first `inference_step` call is timed apart (its eager warm-up, where
+cuDNN picks its algorithms, and the capture), then 2 warm-up calls of each;
+then --rounds rounds of --iters back-to-back calls of each call and batch
+size, all in turns, on the host clock ended by one synchronise. Per batch
+size and call (the eager figures under `eager_` names) it reports the
+median / min / max ms per batch and img/s, one profiled round (device busy
+ms per call and its share of the median ms; kernels per call; the
+hand-written kernels' launches per call from the kernel records, which a
+replay makes without running their wrappers), the wrappers' own launches
+per call (0 for a replay), `mfu`; then the model FLOPs per image, the
+first call's captures and wrapper launches (`graph`: its eager warm-up and
+its capture each launch what an eager call does), the peak memory, and
+the mean valid proposals and detections per image (random weights set the
+NMS depth and the detection count, so the work done is shown). The
+record's `graphs` holds the run's captures and replays
+(`rcnn3d.inference_step`'s counters), the model's recaptures and the
+graphs' pool bytes.
 
 Output: one line per batch size, then as the last line `bench.py`'s JSON
-keys `metric`, `value` (the best img/s) and `unit`, with the card and its
-power limit. `bench.py`'s `vs_baseline` is not carried: it divides by an
+keys `metric`, `value` (the best graphed img/s) and `unit`, with the card
+and its power limit. `bench.py`'s `vs_baseline` is not carried: it divides by an
 A100 estimate that was never measured. --out writes the full record with
 the git commit. Runs on the card unless --device cpu (no device numbers
 there: those fields are null).
@@ -91,19 +100,30 @@ def git_commit():
     return got.stdout.strip() or None
 
 
-def launch_counts():
-    """The kernels' launch counts: ROIAlign forward, backward, then the NMS
-    words and greedy kernels."""
-    from ..ops import nms_cuda
-    from ..ops.roi_align_cuda import multilevel_roi_align
-    return (multilevel_roi_align.launches, multilevel_roi_align.bwd_launches,
-            nms_cuda.suppression_words.launches, nms_cuda.greedy_keep.launches)
+def launches_per_call(before: dict, after: dict, n: int) -> dict:
+    """The wrappers' launches per call between two
+    `rcnn3d.kernel_launch_counts()`."""
+    return {k: (after[k] - before[k]) / n for k in after}
 
 
-def nms_launches(before, after, n: int) -> dict:
-    """The NMS kernels' launches per call between two `launch_counts()`."""
-    return {"suppression_words": (after[2] - before[2]) / n,
-            "greedy_keep": (after[3] - before[3]) / n}
+class Counted:
+    """`fn` timed by `benchtime.timed_calls(fn, iters)`, adding up the
+    kernels' wrapper launches and the calls it made."""
+
+    def __init__(self, fn, iters: int):
+        self.fn, self.iters, self.calls = fn, iters, 0
+        self.launches = dict.fromkeys(rcnn3d.kernel_launch_counts(), 0)
+
+    def __call__(self) -> float:
+        before = rcnn3d.kernel_launch_counts()
+        ms = bt.timed_calls(self.fn, self.iters)
+        for k, n in rcnn3d.kernel_launch_counts().items():
+            self.launches[k] += n - before[k]
+        self.calls += self.iters
+        return ms
+
+    def per_call(self) -> dict:
+        return {k: n / self.calls for k, n in self.launches.items()}
 
 
 def peak_mem_gib(device):
@@ -128,67 +148,92 @@ def write_record(path: str, record: dict):
 
 def run(cfg, batch_sizes=BATCH_SIZES, image: int = IMG, rounds: int = 5, iters: int = 30,
         device="cuda", model=None):
-    """Time `rcnn3d.inference` at each batch size (module docstring); prints
-    one line per batch size and the summary line last. Returns (record,
-    {bs: ((raw, images, Ks, ratios), outputs of the last call)}). `model`
-    defaults to `random_model(cfg, device)`."""
+    """Time `rcnn3d.inference_step` (graphed) and `rcnn3d.inference`
+    (eager) at each batch size (module docstring); prints one line per batch
+    size and the summary line last. Returns (record, {bs: ((raw, images, Ks,
+    ratios), outputs of the last graphed call)}). `model` defaults to
+    `random_model(cfg, device)`."""
     device = bt.cuda_device(device)
     model = random_model(cfg, device) if model is None else model
     kw = rcnn3d.inference_kwargs(cfg)
     data = inputs(cfg, batch_sizes, image, device)
-    calls = {bs: (lambda d=d: rcnn3d.inference(model, d[1], d[2], d[3], **kw))
+    graphed = {bs: (lambda d=d: rcnn3d.inference_step(model, d[1], d[2], d[3], **kw))
+               for bs, d in data.items()}
+    eager = {bs: (lambda d=d: rcnn3d.inference(model, d[1], d[2], d[3], **kw))
              for bs, d in data.items()}
-    rows = {}
+    rows, graph = {}, {}
+    graph_counts = graph_counters()
     for bs in batch_sizes:
         reset_peak_mem(device)
-        first = bt.timed_calls(calls[bs], 1)
-        bt.timed_calls(calls[bs], WARMUP)
+        before, captures = rcnn3d.kernel_launch_counts(), rcnn3d.inference_step.captures
+        first = bt.timed_calls(graphed[bs], 1)     # eager warm-up + capture
+        graph[bs] = None if device.type != "cuda" else {
+            "captures": rcnn3d.inference_step.captures - captures,
+            "wrapper_launches": launches_per_call(before, rcnn3d.kernel_launch_counts(), 1)}
+        bt.timed_calls(graphed[bs], WARMUP)
+        bt.timed_calls(eager[bs], WARMUP)
         rows[bs] = {"bs": bs, "first_call_ms": first, "peak_mem_gib": peak_mem_gib(device)}
-    before = launch_counts()
-    times = bt.in_turns({bs: (lambda f=calls[bs]: bt.timed_calls(f, iters))
-                         for bs in batch_sizes}, rounds)
-    after = launch_counts()
-    n_calls = rounds * iters
+    timed = {}
+    for bs in batch_sizes:
+        timed[("graphed", bs)] = Counted(graphed[bs], iters)
+        timed[("eager", bs)] = Counted(eager[bs], iters)
+    times = bt.in_turns(timed, rounds)
     last = {}
     for bs in batch_sizes:
-        row, t = rows[bs], times[bs]
-        counts, out = bt.model_flops(model, calls[bs])
-        profile = bt.device_profile(calls[bs], iters, device)
+        row = rows[bs]
+        counts, out = bt.model_flops(model, eager[bs])   # a replay runs no Python to count
+        for mode, fn in (("graphed", graphed[bs]), ("eager", eager[bs])):
+            t = times[(mode, bs)]
+            profile = bt.device_profile(fn, iters, device)
+            prefix = "" if mode == "graphed" else "eager_"
+            row.update({
+                prefix + "ms_per_batch": t, prefix + "img_per_s": bs * 1e3 / t["median_ms"],
+                prefix + "img_per_s_range": [bs * 1e3 / t["max_ms"], bs * 1e3 / t["min_ms"]],
+                prefix + "profile": profile,
+                prefix + "device_busy_share": bt.busy_share(profile, t["median_ms"]),
+                prefix + "mfu": bt.mfu(counts.model, t["median_ms"], model.dtype, device),
+                prefix + "wrapper_launches_per_call": timed[(mode, bs)].per_call()})
         row.update(
-            ms_per_batch=t, img_per_s=bs * 1e3 / t["median_ms"],
-            img_per_s_range=[bs * 1e3 / t["max_ms"], bs * 1e3 / t["min_ms"]],
-            profile=profile, device_busy_share=bt.busy_share(profile, t["median_ms"]),
             model_gflop_per_image=counts.model / bs / 1e9,
             all_gflop_per_image=counts.all / bs / 1e9,
-            mfu=bt.mfu(counts.model, t["median_ms"], model.dtype, device),
             proposals_per_image=float(out["proposal_valid"].sum()) / bs,
-            detections_per_image=float(out["valid"].sum()) / bs)
-        last[bs] = (data[bs], calls[bs]())
-    kernel_launches = {"forward": (after[0] - before[0]) / (n_calls * len(batch_sizes)),
-                       "backward": (after[1] - before[1]) / (n_calls * len(batch_sizes))}
+            detections_per_image=float(out["valid"].sum()) / bs, graph=graph[bs])
+        last[bs] = (data[bs], graphed[bs]())
     best = max(batch_sizes, key=lambda bs: rows[bs]["img_per_s"])
     dtype = str(model.dtype).replace("torch.", "")
+    graphs = model.inference_graphs
     record = {"dtype": dtype, "image": image, "rounds": rounds, "iters": iters,
               "device": str(device), **bt.card_fields(device), "inference_kwargs": kw,
-              "kernel_launches_per_call": kernel_launches,
-              "nms_launches_per_call": nms_launches(before, after, n_calls * len(batch_sizes)),
+              "graphs": None if graphs is None else {
+                  **{k: n - graph_counts[k] for k, n in graph_counters().items()},
+                  "recaptures": graphs.recaptures, "pool_bytes": graphs.pool_bytes()},
               "batch_sizes": [rows[bs] for bs in batch_sizes]}
     for bs in batch_sizes:
         r = rows[bs]
-        busy = ("not measured" if r["device_busy_share"] is None
-                else f"{100 * r['device_busy_share']:.0f}% busy, "
-                     f"{r['profile']['kernels_per_call']:.0f} kernels/call")
-        print(f"# bs={bs}: {r['ms_per_batch']['median_ms']:.2f} ms/batch "
-              f"({r['ms_per_batch']['min_ms']:.2f}-{r['ms_per_batch']['max_ms']:.2f}), "
-              f"{r['img_per_s']:.1f} img/s; first call {r['first_call_ms']:.1f} ms; {busy}; "
-              f"{r['model_gflop_per_image']:.1f} GFLOP/img, mfu {bt.fmt(r['mfu'])}; "
+        print(f"# bs={bs}: graphed {_line(r, '')}; eager {_line(r, 'eager_')}; first call "
+              f"{r['first_call_ms']:.1f} ms; {r['model_gflop_per_image']:.1f} GFLOP/img; "
               f"{r['proposals_per_image']:.0f} proposals, {r['detections_per_image']:.1f} "
               f"detections per image", flush=True)
     record["summary"] = summary_line(
-        f"DLA34-FPN {image}px inference throughput (bs={best}, {dtype}, 1 GPU)",
+        f"DLA34-FPN {image}px inference throughput (bs={best}, {dtype}, 1 GPU, CUDA graph)",
         rows[best]["img_per_s"], record)
     print(json.dumps(record["summary"]), flush=True)
     return record, last
+
+
+def graph_counters() -> dict:
+    """This process's `rcnn3d.inference_step` captures and replays."""
+    return {"captures": rcnn3d.inference_step.captures,
+            "replays": rcnn3d.inference_step.replays}
+
+
+def _line(r, prefix):
+    t, p = r[prefix + "ms_per_batch"], r[prefix + "profile"]
+    busy = ("busy not measured" if r[prefix + "device_busy_share"] is None
+            else f"{100 * r[prefix + 'device_busy_share']:.0f}% busy, "
+                 f"{p['kernels_per_call']:.0f} kernels/call")
+    return (f"{t['median_ms']:.2f} ms/batch ({t['min_ms']:.2f}-{t['max_ms']:.2f}), "
+            f"{r[prefix + 'img_per_s']:.1f} img/s, {busy}, mfu {bt.fmt(r[prefix + 'mfu'])}")
 
 
 def main(argv=None):

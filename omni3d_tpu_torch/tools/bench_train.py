@@ -28,6 +28,7 @@ import os
 
 import torch
 
+from ..models import rcnn3d
 from ..utils import benchtime as bt
 from . import bench
 
@@ -54,16 +55,16 @@ def run(cfg, bs: int = 8, dtype=torch.bfloat16, rounds: int = 5, iters: int = 10
     first = {k: float(v.detach() if torch.is_tensor(v) else v) for k, v in one_step().items()}
     bt.timed_calls(one_step, WARMUP - 1)
     counts, _ = bt.model_flops(model, one_step)
-    before = bench.launch_counts()
+    before = rcnn3d.kernel_launch_counts()
     t = bt.in_turns({"step": lambda: bt.timed_calls(one_step, iters)}, rounds)["step"]
-    after = bench.launch_counts()
+    after = rcnn3d.kernel_launch_counts()
     profile = bt.device_profile(one_step, iters, device)
     losses = [float(v) for v in totals]
     if not all(math.isfinite(v) for v in losses):
         raise RuntimeError(f"a training step's total_loss is not finite: {losses}")
     if step.state["skipped"]:
         raise RuntimeError(f"the stabilizer skipped {step.state['skipped']} steps")
-    n = rounds * iters
+    per_step = bench.launches_per_call(before, after, rounds * iters)
     name = str(dtype).replace("torch.", "")
     record = {
         "dtype": name, "bs": bs, "image": image, "rounds": rounds, "iters": iters,
@@ -76,9 +77,9 @@ def run(cfg, bs: int = 8, dtype=torch.bfloat16, rounds: int = 5, iters: int = 10
         "all_gflop_per_step": counts.all / 1e9,
         "mfu": bt.mfu(counts.model, t["median_ms"], dtype, device),
         "peak_mem_gib": bench.peak_mem_gib(device),
-        "kernel_launches_per_step": {"forward": (after[0] - before[0]) / n,
-                                     "backward": (after[1] - before[1]) / n},
-        "nms_launches_per_step": bench.nms_launches(before, after, n),
+        "kernel_launches_per_step": {"forward": per_step["roi_align_fwd"],
+                                     "backward": per_step["roi_align_bwd"]},
+        "nms_launches_per_step": {k: per_step[k] for k in ("suppression_words", "greedy_keep")},
         "profile": profile, "device_busy_share": bt.busy_share(profile, t["median_ms"]),
         "total_loss": losses, "first_step_losses": first,
     }

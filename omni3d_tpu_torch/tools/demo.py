@@ -9,9 +9,10 @@ demo/demo.py, same flags).
 Every .jpg / .jpeg / .png in the folder is read with the port's own
 decoders (`data.image.read_image_bgr`: JPEG bit-equal to cv2.imread),
 resized to the test scale (`resize_bilinear_uint8`), padded to the shape
-bucket and run through `models.rcnn3d.inference` with the config's
-settings, in its TPU.COMPUTE_DTYPE. Without --focal-length the focal
-length is 2 x the image height and the principal point the image centre
+bucket and run through `models.rcnn3d.inference_step` (one CUDA graph per
+padded shape on the card) with the config's settings, in its
+TPU.COMPUTE_DTYPE. Without --focal-length the focal length is 2 x the
+image height and the principal point the image centre
 (reference demo.py:54-79). Detections scoring at least --threshold are drawn
 as the JAX demo draws them: labelled 2D boxes, shaded cuboids and wireframes
 over the image (`<name>_boxes.png`), the shaded top-down novel view
@@ -43,7 +44,7 @@ from ..config import get_default_cfg, validate_cfg
 from ..data.image import read_image_bgr, resize_bilinear_uint8, write_png
 from ..data.mapper import pad_to_bucket, resize_shortest_edge
 from ..engine.loop import build_eval_model
-from ..models.rcnn3d import inference, inference_kwargs, preprocess
+from ..models.rcnn3d import inference_kwargs, inference_step, preprocess
 from ..vis.vis import draw_2d_box, draw_bev, get_color, render_scene_view
 from .train_net import load_weights
 
@@ -85,17 +86,18 @@ def network_input(cfg, image_bgr: np.ndarray):
 
 
 def infer(model, cfg, image_bgr: np.ndarray, K: np.ndarray) -> dict:
-    """`inference` on one image (on the model's device) -> its padded
-    detections as float32 numpy arrays."""
+    """`inference_step` on one image (on the model's device: one CUDA graph
+    per padded shape on the card) -> its padded detections as float32 numpy
+    arrays."""
     device = next(model.parameters()).device
     canvas, net_h, net_w = network_input(cfg, image_bgr)
     images = preprocess(torch.from_numpy(canvas[None]).to(device), cfg.MODEL.PIXEL_MEAN,
                         cfg.MODEL.PIXEL_STD)
     ratio = image_bgr.shape[0] / net_h
-    out = inference(model, images, torch.from_numpy(K[None]).to(device),
-                    torch.tensor([ratio], dtype=torch.float32, device=device),
-                    hw=torch.tensor([[net_h, net_w]], dtype=torch.float32, device=device),
-                    **inference_kwargs(cfg))
+    out = inference_step(model, images, torch.from_numpy(K[None]).to(device),
+                         torch.tensor([ratio], dtype=torch.float32, device=device),
+                         hw=torch.tensor([[net_h, net_w]], dtype=torch.float32, device=device),
+                         **inference_kwargs(cfg))
     return {k: v[0].float().cpu().numpy() for k, v in out.items()}
 
 

@@ -10,8 +10,10 @@ px, `bench.py`'s draw for the batch size). `stage_chain` runs
 same order, and keeps every stage's inputs; its outputs equal
 `inference`'s bit for bit (a test holds them). Each stage is then timed
 alone on its captured inputs: --rounds rounds of --iters back-to-back calls,
-the stages and the full call in turns (`utils.benchtime.in_turns`), with one
-profiled round each (device ms, kernels) and its model FLOPs. The stages and
+the stages, the full call and the full call as a CUDA graph
+(`rcnn3d.inference_step`, "full call, graphed") in turns
+(`utils.benchtime.in_turns`), with one profiled round each (device ms,
+kernels) and its model FLOPs. The stages and
 their names are the JAX tool's, in `inference`'s order; "anchors" is the
 port's own (the JAX tool folds them into its graph) and the JAX tool's
 "pyramid staging" (the TPU kernel's transposed pyramid) has no counterpart.
@@ -23,7 +25,8 @@ The record has the JAX tool's keys (`batch`, `image_hw`, `stage_ms`,
 `peak_tflops_assumed`) plus `stage_device_ms`, `stage_kernels`,
 `stage_gflop`, `device_busy_share` (the full call's device busy ms over its
 median ms), `kernels_per_call`,
-`sum_of_stages_ms`, `card` and `power_limit`. It prints one JSON object as
+`sum_of_stages_ms`, `graphed_full_call_ms`, `graphed_device_busy_share`,
+`card` and `power_limit`. It prints one JSON object as
 its last line and writes it to --out. On the CPU the device fields are null.
 """
 from __future__ import annotations
@@ -108,6 +111,7 @@ def _decode(m, s):
                                      s["prop_boxes"], s["prop_valid"])
 
 
+GRAPHED = "full call, graphed"   # `inference_step`, one CUDA graph replayed
 STAGES = (("backbone+FPN", _features), ("RPN head convs", _rpn_head), ("anchors", _anchors),
           ("proposal select/NMS", _proposals), ("box pooler (1000)", _box_pooler),
           ("box head FCs", _box_head), ("per-class NMS", _class_nms),
@@ -141,8 +145,7 @@ def stage_chain(model, images, Ks, ratios, **kw):
     function that the NMS-bearing stages call, on the inputs it got."""
     B, H, W, _ = images.shape
     s = {"images": images, "Ks": Ks, "ratios": ratios, "kw": kw,
-         "image_hw": torch.tensor([H, W], dtype=torch.float32,
-                                  device=images.device).expand(B, 2)}
+         "image_hw": rcnn3d.padded_hw(B, H, W, images.device)}
     for name, stage in STAGES:
         if name == "proposal select/NMS":
             with recorded(nms_ops, "sort_desc") as sorts, recorded(nms_ops, "nms_mask") as nmss:
@@ -188,10 +191,12 @@ def run(cfg, bs: int = 32, image: int = bench.IMG, rounds: int = 3, iters: int =
     kw = rcnn3d.inference_kwargs(cfg)
     _, images, Ks, ratios = bench.inputs(cfg, (bs,), image, device)[bs]
     full = lambda: rcnn3d.inference(model, images, Ks, ratios, **kw)  # noqa: E731
+    graphed = lambda: rcnn3d.inference_step(model, images, Ks, ratios, **kw)  # noqa: E731
     for _ in range(2):
         full()
+        graphed()
     out, s, subs = stage_chain(model, images, Ks, ratios, **kw)
-    calls = {"full step": full}
+    calls = {"full step": full, GRAPHED: graphed}
     for name, stage in STAGES:
         calls[name] = lambda stage=stage: stage(model, s)
     calls.update(subs)
@@ -200,7 +205,8 @@ def run(cfg, bs: int = 32, image: int = bench.IMG, rounds: int = 3, iters: int =
     times = bt.in_turns({n: (lambda f=f: bt.timed_calls(f, iters)) for n, f in calls.items()},
                         rounds)
     profiles = {n: bt.device_profile(f, iters, device) for n, f in calls.items()}
-    flops = {n: bt.model_flops(model, f)[0].model for n, f in calls.items()}
+    flops = {n: bt.model_flops(model, f)[0].model for n, f in calls.items() if n != GRAPHED}
+    flops[GRAPHED] = flops["full step"]   # a replay runs no Python for the counter to see
     full_ms = times["full step"]["median_ms"]
     stage_names = [n for n, _ in STAGES]
     dtype = model.dtype
@@ -224,6 +230,11 @@ def run(cfg, bs: int = 32, image: int = bench.IMG, rounds: int = 3, iters: int =
         "kernels_per_call": profiles["full step"]["kernels_per_call"],
         "roi_align_launches_per_call": profiles["full step"]["roi_align_launches_per_call"],
         "top_kernels_ms_per_call": profiles["full step"]["top_kernels_ms_per_call"],
+        "graphed_full_call_ms": times[GRAPHED]["median_ms"],
+        "graphed_hand_kernel_launches_per_call":
+            profiles[GRAPHED]["hand_kernel_launches_per_call"],
+        "graphed_device_busy_share": bt.busy_share(profiles[GRAPHED],
+                                                   times[GRAPHED]["median_ms"]),
     }
     for n in calls:
         print(f"{n:<24}: {record['stage_ms'][n]:8.2f} ms  device "
@@ -232,7 +243,8 @@ def run(cfg, bs: int = 32, image: int = bench.IMG, rounds: int = 3, iters: int =
               f"{record['stage_gflop'][n]:8.1f} GFLOP", flush=True)
     print(f"sum of stages {record['sum_of_stages_ms']:.2f} ms, full call {full_ms:.2f} ms "
           f"({record['img_per_s']:.1f} img/s), busy {bt.fmt(record['device_busy_share'])}, "
-          f"mfu {bt.fmt(record['mfu'])}", flush=True)
+          f"mfu {bt.fmt(record['mfu'])}; graphed {record['graphed_full_call_ms']:.2f} ms, busy "
+          f"{bt.fmt(record['graphed_device_busy_share'])}", flush=True)
     return record, out, (images, Ks, ratios)
 
 

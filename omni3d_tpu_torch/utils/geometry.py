@@ -6,6 +6,7 @@ on the host, on Python floats, and `mat2euler` / `euler2mat` are numpy host
 helpers as in the JAX package."""
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
@@ -36,14 +37,21 @@ CUBOID_FACES = (
 )
 
 
+@functools.lru_cache(maxsize=None)
+def _vert_signs(dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """`_VERT_SIGNS` as an (8, 3) tensor, made once per dtype and device:
+    the host-to-device copy blocks, and a CUDA graph cannot capture it.
+    Callers only read it."""
+    return torch.tensor(_VERT_SIGNS, dtype=dtype, device=device)
+
+
 def cuboid_verts(box3d: torch.Tensor, R: torch.Tensor | None = None) -> torch.Tensor:
     """(..., 8, 3) camera-space vertices of [x, y, z, w, h, l] cuboids,
     rotated by R (..., 3, 3) about their centers."""
     ctr = box3d[..., :3]
     w, h, l = box3d[..., 3], box3d[..., 4], box3d[..., 5]
     half = torch.stack([l, h, w], dim=-1) * 0.5
-    signs = torch.tensor(_VERT_SIGNS, dtype=box3d.dtype, device=box3d.device)
-    local = signs * half[..., None, :]
+    local = _vert_signs(box3d.dtype, box3d.device) * half[..., None, :]
     if R is not None:
         local = torch.einsum("...ij,...vj->...vi", R, local)
     return local + ctr[..., None, :]

@@ -62,8 +62,10 @@ def test_bench_inputs_are_bench_py_draws():
 
 
 def test_bench_run_matches_inference_and_jax(capsys):
-    """(b) One round of one call at bs 1 and 2: every record key, the last
-    printed line bench.py's keys, the outputs equal to `inference` with
+    """(b) One round of one call at bs 1 and 2: every record key (the
+    graphed and the eager call's; on the CPU `inference_step` is `inference`
+    and nothing is captured), the last printed line bench.py's keys, the
+    outputs equal to `inference` with
     `inference_kwargs`, and with weights carried from the JAX model, within
     test_torch_inference's tolerances of the JAX `inference_impl`."""
     jcfg, tcfg = small_cfgs(**SMALL_TEST)
@@ -77,9 +79,13 @@ def test_bench_run_matches_inference_and_jax(capsys):
     assert summary == record["summary"]
     for row in record["batch_sizes"]:
         assert {"bs", "first_call_ms", "peak_mem_gib", "ms_per_batch", "img_per_s", "profile",
-                "model_gflop_per_image", "mfu", "proposals_per_image",
-                "detections_per_image"} <= set(row)
+                "model_gflop_per_image", "mfu", "proposals_per_image", "detections_per_image",
+                "eager_ms_per_batch", "eager_img_per_s", "eager_profile", "eager_mfu",
+                "wrapper_launches_per_call", "eager_wrapper_launches_per_call"} <= set(row)
         assert row["model_gflop_per_image"] > 0 and row["mfu"] is None   # no card: not measured
+        assert row["graph"] is None and row["eager_mfu"] is None   # nothing captured on the CPU
+        assert row["profile"]["hand_kernel_launches_per_call"] is None
+    assert record["graphs"] is None
     kw = rcnn3d.inference_kwargs(tcfg)
     assert kw == jax_inference_kwargs(jcfg) and record["inference_kwargs"] == kw
     for bs, ((_, images, Ks, ratios), got) in last.items():

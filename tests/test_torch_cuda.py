@@ -1,7 +1,8 @@
 """The CUDA ROIAlign kernels (forward and backward) vs their plain PyTorch
 versions, the training entry point, a one-rank NCCL step, the
-evaluation's IoU3D, the demo, the cuboid rasterizer, the inference bench
-and the stage chain, on the card.
+evaluation's IoU3D, the demo, the cuboid rasterizer, the inference bench,
+the stage chain, the NMS kernels and `inference_step`'s CUDA graphs, on the
+card.
 
 These tests need a CUDA device and skip without one. They import no JAX, so
 they run on a machine without it; there, skip tests/conftest.py (it imports
@@ -396,7 +397,8 @@ def test_backbone_family_runs_on_the_card(device, opts):
 @pytest.mark.cuda
 def test_demo_on_the_card(device, tmp_path):
     """`tools.demo` on the card (narrow heads, seeded weights, two JPEG
-    fixtures, threshold 0): two forward launches per image, the three PNGs
+    fixtures, threshold 0): four forward launches through the wrapper per
+    graph captured (one per padded shape) and none per replay, the three PNGs
     at their sizes, and each image's detections equal to a direct
     `inference` call on the same input (scores 1e-4, boxes 1e-2 px)."""
     import os
@@ -422,6 +424,7 @@ def test_demo_on_the_card(device, tmp_path):
         return det
     demo.infer = infer
     before = multilevel_roi_align.launches
+    graphs_before = rcnn3d.inference_step.captures, rcnn3d.inference_step.replays
     try:
         records = demo.main(["--config-file", str(root / "configs" / "cubercnn_DLA34_FPN.yaml"),
                              "--input-folder", str(folder), "--threshold", "0.0",
@@ -432,7 +435,12 @@ def test_demo_on_the_card(device, tmp_path):
     finally:
         demo.infer = real
     torch.cuda.synchronize()
-    assert multilevel_roi_align.launches - before == 2 * len(names)
+    # one graph per padded shape: a capture runs the wrappers twice (its
+    # eager warm-up and the capture), a replay not at all
+    captures = rcnn3d.inference_step.captures - graphs_before[0]
+    replays = rcnn3d.inference_step.replays - graphs_before[1]
+    assert captures + replays == len(names) and captures >= 1
+    assert multilevel_roi_align.launches - before == 4 * captures
     for (model, cfg, img, K, det), rec in zip(calls, records):
         for kind, shape in (("boxes", img.shape), ("novel", (512, 512, 3)), ("bev", (400, 400, 3))):
             assert read_image_bgr(rec["files"][kind]).shape == shape
@@ -476,8 +484,10 @@ def test_render_depth_map_card_equals_cpu(device):
 
 @pytest.mark.cuda
 def test_bench_at_bs1_on_the_card(device):
-    """`tools.bench` at bs 1 (full width, bf16): two forward launches per
-    call, outputs equal to a direct `inference` call, a device profile and
+    """`tools.bench` at bs 1 (full width, bf16): per eager call two forward
+    launches and 2 + 2 NMS launches through the wrappers, per graphed call
+    none through them and the same in the profiler's kernel records, the
+    graphed outputs equal to a direct `inference` call, device profiles and
     0 < mfu <= 1."""
     from omni3d_tpu_torch.models import rcnn3d
     from omni3d_tpu_torch.tools import bench
@@ -485,9 +495,15 @@ def test_bench_at_bs1_on_the_card(device):
     cfg = bench.config()
     record, last = bench.run(cfg, (1,), rounds=1, iters=2, device=device)
     row = record["batch_sizes"][0]
-    assert record["kernel_launches_per_call"] == {"forward": 2.0, "backward": 0.0}
-    assert row["profile"]["roi_align_launches_per_call"]["roi_align_fwd"] == 2.0
-    assert 0 < row["mfu"] <= 1 and 0 < row["device_busy_share"] <= 1
+    per_call = {"roi_align_fwd": 2.0, "roi_align_bwd": 0.0, "suppression_words": 2.0,
+                "greedy_keep": 2.0}
+    assert row["eager_wrapper_launches_per_call"] == per_call
+    assert row["wrapper_launches_per_call"] == dict.fromkeys(per_call, 0.0)
+    assert row["profile"]["hand_kernel_launches_per_call"] == per_call
+    assert row["eager_profile"]["hand_kernel_launches_per_call"] == per_call
+    assert record["graphs"]["captures"] == 1 and record["graphs"]["pool_bytes"] > 0
+    for prefix in ("", "eager_"):
+        assert 0 < row[prefix + "mfu"] <= 1 and 0 < row[prefix + "device_busy_share"] <= 1
     (_, images, Ks, ratios), got = last[1]
     model = bench.random_model(cfg, device)
     want = rcnn3d.inference(model, images, Ks, ratios, **rcnn3d.inference_kwargs(cfg))
@@ -687,3 +703,158 @@ def test_nms_makes_no_host_sync(device):
             tnms.nms_mask_plain(boxes, scores, 0.7, valid)
     finally:
         torch.cuda.set_sync_debug_mode(0)
+
+
+# inference_step: CUDA graphs of `inference` at a narrow width
+NARROW = ("MODEL.ROI_HEADS.NUM_CLASSES", "5", "MODEL.FPN.OUT_CHANNELS", "64",
+          "MODEL.ROI_BOX_HEAD.FC_DIM", "128", "MODEL.ROI_CUBE_HEAD.FC_DIM", "128",
+          "MODEL.RPN.POST_NMS_TOPK_TEST", "200", "TEST.DETECTIONS_PER_IMAGE", "20")
+
+
+def _narrow_model(device, train=False, seed=0, dtype=torch.float32):
+    import pathlib
+
+    from omni3d_tpu_torch.config import get_default_cfg
+    from omni3d_tpu_torch.models import rcnn3d
+    from omni3d_tpu_torch.tools.synthetic import condition_pose_bias_
+
+    cfg = get_default_cfg()
+    cfg.merge_from_file(str(pathlib.Path(__file__).resolve().parents[1] / "configs"
+                            / "cubercnn_DLA34_FPN.yaml"))
+    cfg.merge_from_list(list(NARROW))
+    model = rcnn3d.build_model(cfg, device=device, dtype=dtype, seed=seed, train=train)
+    condition_pose_bias_(model)
+    return model, rcnn3d.inference_kwargs(cfg)
+
+
+def _batch(device, bs, h, w, seed=0):
+    gen = torch.Generator().manual_seed(seed)
+    images = torch.randn(bs, h, w, 3, generator=gen).to(device)
+    K = torch.tensor([[200.0, 0, w / 2], [0, 200.0, h / 2], [0, 0, 1]], device=device)
+    hw = torch.tensor([[h, w]] * bs, dtype=torch.float32, device=device)
+    return images, K.expand(bs, 3, 3).contiguous(), torch.ones(bs, device=device), hw
+
+
+def _assert_equal(got, want, what=""):
+    assert set(got) == set(want)
+    for k, v in want.items():
+        assert torch.equal(got[k], v), (what, k)
+
+
+@pytest.mark.cuda
+def test_inference_step_replays_equal_eager(device):
+    """Three keys (bs 2 at 96 x 128 with hw, bs 1 at 128 x 128, the oracle
+    branch): the first call (the eager warm-up) and replays in the order A,
+    B, A, C, B are bit-equal to `inference`; each first call (the warm-up
+    and the capture) launched 4 forward, 0 backward and 4 + 4 NMS kernels
+    through their wrappers (the oracle's 2 forward), a replay none."""
+    from omni3d_tpu_torch.models import rcnn3d
+
+    model, kw = _narrow_model(device)
+    a_img, a_K, a_r, a_hw = _batch(device, 2, 96, 128)
+    b_img, b_K, b_r, _ = _batch(device, 1, 128, 128, seed=1)
+    oracle = (torch.tensor([[[10.0, 10.0, 60.0, 60.0], [20.0, 5.0, 90.0, 80.0]]] * 2,
+                           device=device),
+              torch.tensor([[1, 3]] * 2, dtype=torch.int32, device=device),
+              torch.tensor([[True, False]] * 2, device=device))
+    calls = {"A": lambda f: f(model, a_img, a_K, a_r, hw=a_hw, **kw),
+             "B": lambda f: f(model, b_img, b_K, b_r, **kw),
+             "C": lambda f: f(model, a_img, a_K, a_r, oracle=oracle, sampling_ratio=0)}
+    want = {n: c(rcnn3d.inference) for n, c in calls.items()}
+    counts = lambda: tuple(rcnn3d.kernel_launch_counts().values())  # noqa: E731
+    graph_counts = lambda: (rcnn3d.inference_step.captures,  # noqa: E731
+                            rcnn3d.inference_step.replays)
+    start = graph_counts()
+    for name in ("A", "B", "C"):
+        before = counts()
+        _assert_equal(calls[name](rcnn3d.inference_step), want[name], name)
+        torch.cuda.synchronize()
+        launched = tuple(a - b for a, b in zip(counts(), before))
+        assert launched == ((4, 0, 4, 4) if name != "C" else (2, 0, 0, 0)), (name, launched)
+    assert len(model.inference_graphs.graphs) == 3
+    assert tuple(b - a for a, b in zip(start, graph_counts())) == (3, 0)
+    before = counts()
+    for name in ("A", "B", "A", "C", "B"):
+        _assert_equal(calls[name](rcnn3d.inference_step), want[name], name)
+    torch.cuda.synchronize()
+    assert counts() == before
+    assert tuple(b - a for a, b in zip(start, graph_counts())) == (3, 5)
+
+
+@pytest.mark.cuda
+def test_inference_step_returns_fresh_outputs(device):
+    """Two replays at one shape on other images: the first call's outputs
+    are unchanged by the second, and each equals eager on its images."""
+    from omni3d_tpu_torch.models import rcnn3d
+
+    model, kw = _narrow_model(device)
+    one, two = _batch(device, 2, 96, 128), _batch(device, 2, 96, 128, seed=3)
+    want1 = rcnn3d.inference(model, *one[:3], **kw)
+    want2 = rcnn3d.inference(model, *two[:3], **kw)
+    assert any(not torch.equal(want1[k], want2[k]) for k in want1)
+    rcnn3d.inference_step(model, *one[:3], **kw)            # capture
+    got1 = rcnn3d.inference_step(model, *one[:3], **kw)
+    got2 = rcnn3d.inference_step(model, *two[:3], **kw)
+    _assert_equal(got1, want1, "first")
+    _assert_equal(got2, want2, "second")
+
+
+@pytest.mark.cuda
+def test_inference_step_sees_new_weights_and_recaptures_on_rebinding(device):
+    """`load_state_dict` after the capture: the replay (no new capture)
+    equals eager with the new weights. A parameter rebound to new storage:
+    the graphs are dropped, `recaptures` counts it, and the new graph equals
+    eager."""
+    from omni3d_tpu_torch.models import rcnn3d
+
+    model, kw = _narrow_model(device)
+    other, _ = _narrow_model(device, seed=1)
+    images, Ks, ratios, _ = _batch(device, 2, 96, 128)
+    step = lambda: rcnn3d.inference_step(model, images, Ks, ratios, **kw)  # noqa: E731
+    eager = lambda: rcnn3d.inference(model, images, Ks, ratios, **kw)  # noqa: E731
+    before = eager()
+    captures = rcnn3d.inference_step.captures
+    step()
+    graphs = model.inference_graphs
+    model.load_state_dict(other.state_dict())
+    got, want = step(), eager()
+    _assert_equal(got, want, "load_state_dict")
+    assert any(not torch.equal(want[k], before[k]) for k in want)
+    assert (rcnn3d.inference_step.captures - captures, graphs.recaptures) == (1, 0)
+    w = model.roi_heads.box_predictor.cls_score.weight
+    w.data = w.data * 0.5
+    got, want = step(), eager()
+    _assert_equal(got, want, "rebound")
+    assert (rcnn3d.inference_step.captures - captures, graphs.recaptures) == (2, 1)
+    _assert_equal(step(), want, "replay after rebinding")
+
+
+@pytest.mark.cuda
+def test_inference_step_of_a_training_model_sees_optimizer_steps(device):
+    """A `train=True` bf16 model (float32 master weights, cast per call
+    inside the graph) under `engine.loop.eval_mode`, as `visualize_training`
+    and `do_test` call it: after an optimizer step the replay equals eager
+    with the stepped weights, and the model's training flags come back."""
+    from omni3d_tpu_torch.engine.loop import eval_mode
+    from omni3d_tpu_torch.models import rcnn3d
+
+    model, kw = _narrow_model(device, train=True, dtype=torch.bfloat16)
+    images, Ks, ratios, hw = _batch(device, 1, 96, 128)
+    opt = torch.optim.SGD(model.parameters(), lr=0.01, momentum=0.9)
+    flags = [m.training for m in model.modules()]
+    counts = (rcnn3d.inference_step.captures, rcnn3d.inference_step.replays)
+    with eval_mode(model):
+        before = rcnn3d.inference_step(model, images, Ks, ratios, hw=hw, **kw)
+    gen = torch.Generator().manual_seed(2)
+    for p in model.parameters():
+        p.grad = torch.randn(p.shape, generator=gen).to(device)
+    opt.step()
+    with eval_mode(model):
+        got = rcnn3d.inference_step(model, images, Ks, ratios, hw=hw, **kw)
+        want = rcnn3d.inference(model, images, Ks, ratios, hw=hw, **kw)
+    assert [m.training for m in model.modules()] == flags and model.training
+    _assert_equal(got, want, "after the step")
+    assert any(not torch.equal(want[k], before[k]) for k in want)
+    assert (rcnn3d.inference_step.captures - counts[0],
+            rcnn3d.inference_step.replays - counts[1]) == (1, 1)
+    assert model.inference_graphs.recaptures == 0
