@@ -1,0 +1,249 @@
+"""The training generator: the program's stabilized training step on a
+seeded pool of batches made on the device.
+
+Set-up builds ONE step object (`engine.train.make_train_step` over the
+port's train-mode model with the benchmark's weights, the config's SGD and
+LR schedule) and drives it through its first `check_steps` steps on
+distinct batches; the window then drives the same object on, cycling the
+pool. Each step gets its own CPU generator for the sampling noise, made
+from (seed, step). The batches: images of the cell's frame size, normalized
+with zero in the padding, and the frozen synthetic ground truth, all drawn
+on the device from the seed. Parameters come from the cell's workload file.
+
+End-to-end: `train_img_per_s` (images of the window's accepted steps over
+the window's time, to the end of its last step; a step the stabilizer
+skips counts as failed), `peak_mem_gib`.
+"""
+from __future__ import annotations
+
+import statistics
+import time
+
+import torch
+
+from .. import checks, trace
+from ..reference import model as ref
+from ..weights import init_state, shapes_of
+from ..yardstick.flops import model_flops
+from ..yardstick.peaks import peaks
+from ..yardstick.synth import ground_truth
+from .frames import frame_shape
+
+
+def step_generator(seed: int, step: int) -> torch.Generator:
+    """The CPU generator of one step's sampling noise."""
+    return torch.Generator().manual_seed((seed * 1_000_003 + step) % (1 << 63))
+
+
+def batch_pool(spec: dict, cfg: dict, seed: int, device) -> list:
+    """`pool_batches` distinct batches of `batch` images on the device."""
+    h0 = spec["source_hw"][0]
+    (h, w), (hp, wp) = frame_shape(spec, cfg, train=True)
+    B = spec["batch"]
+    gen = torch.Generator(device=device).manual_seed((seed * 2 + 1) % (1 << 63))
+    mean = torch.tensor(cfg["MODEL"]["PIXEL_MEAN"], device=device)
+    std = torch.tensor(cfg["MODEL"]["PIXEL_STD"], device=device)
+    out = []
+    for _ in range(spec["pool_batches"]):
+        images = torch.zeros((B, hp, wp, 3), device=device)
+        raw = torch.randint(0, 256, (B, h, w, 3), generator=gen, device=device,
+                            dtype=torch.uint8)
+        images[:, :h, :w] = (raw.float() - mean) / std
+        batch = ground_truth(B, h, w, cfg["MODEL"]["ROI_HEADS"]["NUM_CLASSES"], gen, device)
+        batch.update(images=images,
+                     Ks=torch.tensor(spec["K"], device=device).expand(B, 3, 3).contiguous(),
+                     ratios=torch.full((B,), h0 / h, device=device),
+                     hw=torch.tensor([float(h), float(w)], device=device).expand(B, 2).contiguous())
+        out.append(batch)
+    return out
+
+
+FAULTS = ("half_batch", "frozen_head")
+
+
+class Program:
+    """The port's training step object and what the check reads of it. A
+    planted fault (`--substitute`): `half_batch`, half of each batch left
+    out and the mean taken over the rest; `frozen_head`, the cube head's
+    parameters put back after each step (one group's update left out)."""
+
+    def __init__(self, ctx):
+        from omni3d_tpu_torch.engine.train import make_train_step
+        from omni3d_tpu_torch.models import rcnn3d
+        from omni3d_tpu_torch.solver.build import build_lr_schedule, build_optimizer
+        cfg = ctx.port_cfg()
+        cfg.SOLVER.IMS_PER_BATCH = ctx.spec["batch"]    # the whole batch on one card
+        self.model = rcnn3d.build_model(cfg, device=ctx.device, train=True)
+        self.model.load_state_dict(init_state(shapes_of(self.model), ctx.seed, ctx.device))
+        self.optimizer = build_optimizer(cfg, self.model)
+        self.step = make_train_step(cfg, self.model, self.optimizer,
+                                    build_lr_schedule(cfg, self.optimizer))
+        self.fault = ctx.substitute
+        if self.fault not in (None, *FAULTS):
+            raise ValueError(f"unknown substitute {self.fault!r}")
+        self.frozen = [p for n, p in self.model.named_parameters()
+                       if n.startswith("roi_heads.cube_head.")]
+
+    def __call__(self, batch, generator) -> bool:
+        """One step; True when the stabilizer accepted it."""
+        if self.fault == "half_batch":
+            n = batch["images"].shape[0] // 2
+            batch = {k: v[:n] for k, v in batch.items()}
+        if self.fault == "frozen_head":
+            before = [p.detach().clone() for p in self.frozen]
+        with trace.span("step"):
+            logs = self.step(batch, generator)
+        if self.fault == "frozen_head":
+            with torch.no_grad():
+                for p, b in zip(self.frozen, before):
+                    p.copy_(b)
+        self.last_loss = logs["total_loss"]
+        return logs["finite"] == 1.0
+
+    def params(self) -> dict:
+        return {n: p.detach().clone() for n, p in self.model.named_parameters()}
+
+    def momentum(self) -> dict:
+        st = self.optimizer.state
+        return {n: st[p]["momentum_buffer"].clone() for n, p in self.model.named_parameters()
+                if "momentum_buffer" in st.get(p, {})}
+
+
+class Reference:
+    """The plain step in float32 (or, as the control, with fp8-rounded
+    products) from the same weights."""
+
+    def __init__(self, ctx, fp8: bool = False):
+        model = ref.build(ctx.config["cfg"], ctx.device, train=True)
+        model.load_state_dict(init_state(shapes_of(model), ctx.seed, ctx.device))
+        model.checkpoint_trunk = True
+        self.model = ref.set_fp8(model, fp8)
+        self.trainer = ref.Trainer(self.model)
+
+    def __call__(self, batch, generator) -> bool:
+        skipped = self.trainer.skipped
+        self.last_loss = torch.tensor(self.trainer.step(batch, generator))
+        return self.trainer.skipped == skipped
+
+    def params(self) -> dict:
+        return {n: p.detach().clone() for n, p in self.model.named_parameters()}
+
+    def momentum(self) -> dict:
+        st = self.trainer.optimizer.state
+        return {n: st[p]["momentum_buffer"].clone() for n, p in self.model.named_parameters()
+                if "momentum_buffer" in st.get(p, {})}
+
+    def grad_norms(self) -> dict:
+        return {n: float(torch.linalg.vector_norm(p.grad.double()))
+                for n, p in self.model.named_parameters()}
+
+
+def first_steps(side, pool: list, seed: int, steps: int) -> dict:
+    """Drive `side` through its first steps on distinct batches: each
+    step's loss, the momentum after step 1 and the parameters before and
+    after."""
+    p0 = side.params()
+    losses, momentum, grads, accepted = [], None, None, True
+    for s in range(steps):
+        accepted &= side(pool[s], step_generator(seed, s))
+        losses.append(float(side.last_loss))
+        if s == 0:
+            momentum = side.momentum()
+            if isinstance(side, Reference):
+                grads = side.grad_norms()
+    p1 = side.params()
+    return {"losses": losses, "momentum": momentum, "grads": grads, "accepted": accepted,
+            "update": {n: p1[n] - p0[n] for n in p0}}
+
+
+def run(ctx) -> dict:
+    spec = ctx.spec
+    cfg = ctx.config["cfg"]
+    B = spec["batch"]
+    K = spec["check_steps"]
+    pool = batch_pool(spec, cfg, ctx.seed, ctx.device)
+    if len(pool) <= K:
+        raise ValueError("the pool must hold more batches than the compared steps")
+    side = Reference(ctx, fp8=True) if ctx.substitute == "control" else Program(ctx)
+    seen = first_steps(side, pool, ctx.seed, K)     # the set-up's steps, compared below
+    ctx.sync()
+    setup_s = ctx.elapsed()
+
+    ok = failed = 0
+    s = K
+    t0 = time.perf_counter()
+    while True:
+        if side(pool[s % len(pool)], step_generator(ctx.seed, s)):
+            ok += 1
+        else:
+            failed += 1
+        s += 1
+        if time.perf_counter() - t0 >= ctx.seconds:
+            break
+    ctx.sync()
+    window_s = time.perf_counter() - t0
+    ctx.note(f"window {window_s:.3f} s, {ok + failed} steps, {1e3 * window_s / (ok + failed):.3f} "
+             f"ms per step; set-up losses {seen['losses']}")
+    peak_bytes = ctx.memory_peak()
+    res = {"attempted": ok + failed, "failed": failed, "memory_peak_bytes": peak_bytes,
+           "e2e": {"train_img_per_s": ok * B / window_s, "peak_mem_gib": peak_bytes / 2 ** 30,
+                   "setup_s": setup_s}}
+    facts = {}
+    if ctx.trace:
+        n = spec["trace_steps"]
+        tr = trace.profile(lambda k: side(pool[(s + k) % len(pool)],
+                                          step_generator(ctx.seed, s + k)), n)
+        s += n
+        count, _ = model_flops(side.model, lambda: side(pool[s % len(pool)],
+                                                        step_generator(ctx.seed, s)))
+        peak = peaks(ctx.card_name()) if ctx.on_card() else None
+        facts = {"trace": tr, "rate_img_per_s": ok * B / window_s, "peak": peak,
+                 "flops_per_image": count.model / B}
+        if peak is not None:
+            facts["roi_align_bwd"] = {"bound_ms": _bwd_bound(ctx.config["cfg"], pool[0], peak),
+                                      "kernel_ms": tr.kernel_ms_per_call("roi_align_bwd")[0]}
+        res["breakdown"] = {"device_ops": tr.top_ops(), "idle_gaps": tr.idle_gaps()}
+        res["busy_s"], res["window_s"] = tr.busy_us / 1e6, tr.window_us / 1e6
+    res["facts"] = facts
+
+    # the check, once the program's state is freed
+    del side
+    ctx.free_memory()
+    ctx.reference_precision()
+    t_check = time.perf_counter()
+    want = first_steps(Reference(ctx), pool, ctx.seed, K)
+    ctx.note(f"reference check {time.perf_counter() - t_check:.3f} s over {K} steps; "
+             f"losses {want['losses']}")
+    keep = checks.moving_leaves(want["grads"])
+    if not (seen["accepted"] and want["accepted"]) or seen["momentum"].keys() != want["momentum"].keys():
+        names = [*checks.group_worst("grad_gap", {}, {}), *checks.group_worst("update_gap", {}, {})]
+        res["numbers"] = dict.fromkeys(("loss_gap", "grad_gap", "update_gap", *names),
+                                       float("inf"))
+    else:
+        grad = checks.leaf_gaps(seen["momentum"], want["momentum"])
+        update = checks.leaf_gaps(seen["update"], want["update"], keep)
+        res["numbers"] = {
+            "loss_gap": max(abs(a - b) / abs(b) for a, b in zip(seen["losses"], want["losses"])),
+            "grad_gap": statistics.median(grad.values()),
+            "update_gap": statistics.median(update.values()),
+            **checks.group_worst("grad_gap", grad, want["momentum"]),
+            **checks.group_worst("update_gap", update, want["momentum"])}
+        ctx.note("worst leaves: " + ", ".join(
+            f"{n} {g:.4g}/{update.get(n, float('nan')):.4g}"
+            for n, g in sorted(grad.items(), key=lambda x: -x[1])[:12]))
+    res["moving_leaves"] = [len(keep), len(want["grads"])]
+    return res
+
+
+def _bwd_bound(cfg: dict, batch: dict, peak: dict) -> float:
+    """The backward pooler's bound ms per step from shapes alone: the
+    pooled gradient read once (B x (S + F) RoIs x P x P x C bf16) and the
+    pyramid gradient written once (bf16, levels of ceil(H / stride) x
+    ceil(W / stride) cells), no operations counted."""
+    B, Hp, Wp = batch["images"].shape[:3]
+    C = cfg["MODEL"]["FPN"]["OUT_CHANNELS"]
+    S = cfg["MODEL"]["ROI_HEADS"]["BATCH_SIZE_PER_IMAGE"]
+    F = int(S * cfg["MODEL"]["ROI_HEADS"]["POSITIVE_FRACTION"])
+    P = cfg["MODEL"]["ROI_BOX_HEAD"]["POOLER_RESOLUTION"]
+    cells = sum(-(-Hp // st) * -(-Wp // st) for st in ref.FEATURE_STRIDES)
+    return (B * (S + F) * P * P * C * 2 + B * cells * C * 2) / peak["hbm_bytes_per_s"] * 1e3
