@@ -59,7 +59,8 @@ from ..models.rcnn3d import build_model, inference_kwargs, inference_step
 from ..parallel import dist as dist_lib
 from ..solver.build import build_lr_schedule, build_optimizer
 from ..utils import checkpoint as ckpt
-from ..utils.benchtime import device_busy_ms
+from ..utils import trace
+from ..utils.benchtime import device_busy_ms, kernel_events
 from ..utils.events import EventStorage
 from ..utils.priors import load_priors_
 from ..vis.logperf import print_per_category_table
@@ -113,10 +114,15 @@ def load_train_state(run: TrainRun, state: dict) -> None:
 
 class _StepProfile:
     """torch.profiler over PROFILE_STEPS: writes <dir>/trace.json (chrome
-    trace) and <dir>/summary.json (wall and device-busy ms per step, busy
-    share, kernels per step, the device's name). The profiler's host cost
-    (~5000 ops per step) lengthens the wall time it divides by, so the busy
-    share it reports is a lower bound."""
+    trace: the port's spans, `utils.trace`, beside the kernels) and
+    <dir>/summary.json: the device's name, the steps, the trace's window
+    per step (first to last event on the profiler's clock), device-busy ms
+    per step and the busy share over that window, kernels per step, and
+    from the same events each span's host ms (`span_host_ms`) and each
+    stage's device ms (`stage_device_ms`: the busy time between its marker
+    kernels), each with its calls, per call and per step. The profiler's
+    host cost (~5000 ops a step) widens the window, so the busy share is a
+    lower bound."""
 
     def __init__(self, profile_dir: str, device: torch.device, n_done: int):
         self.n0 = n_done          # iterations done before the trace starts
@@ -127,32 +133,49 @@ class _StepProfile:
         self.dir, self.device = profile_dir, device
         self.prof = torch.profiler.profile(activities=acts)
         self.prof.start()
-        self.t0 = time.perf_counter()
 
     def stop(self, n_done: int) -> dict:
         steps = n_done - self.n0
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
-        wall = (time.perf_counter() - self.t0) * 1e3
         self.prof.stop()
         os.makedirs(self.dir, exist_ok=True)
         self.prof.export_chrome_trace(os.path.join(self.dir, "trace.json"))
-        kernels = [e for e in self.prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA and e.name
-                   and not e.name.startswith(("Memcpy", "Memset"))]
-        busy = device_busy_ms(kernels)
-        summary = {
-            "device": (torch.cuda.get_device_name(self.device) if self.device.type == "cuda"
-                       else "cpu"),
-            "steps": steps, "wall_ms_per_step": wall / steps,
-            "device_busy_ms_per_step": busy / steps,
-            "device_busy_share": busy / wall if self.device.type == "cuda" else None,
-            "kernels_per_step": len(kernels) / steps,
-        }
+        card = torch.cuda.get_device_name(self.device) if self.device.type == "cuda" else None
+        summary = step_profile_summary(self.prof.events(), steps, card)
         with open(os.path.join(self.dir, "summary.json"), "w") as f:
             json.dump(summary, f)
         print(f"[train] profile of {steps} steps -> {self.dir}: {json.dumps(summary)}")
         return summary
+
+
+def step_profile_summary(events, steps: int, card: str | None) -> dict:
+    """`_StepProfile`'s summary of a trace's events over `steps` steps on
+    the card named `card` (None: the CPU, no busy share)."""
+    times = [(e.time_range.start, e.time_range.end) for e in events]
+    window = (max(t for _, t in times) - min(s for s, _ in times)) / 1e3 if times else 0.0
+    kernels = kernel_events(events)
+    busy = device_busy_ms(kernels)
+    host = {}
+    for e in events:
+        if e.device_type == torch.autograd.DeviceType.CPU and e.name.startswith(trace.PREFIX):
+            host.setdefault(e.name[len(trace.PREFIX):], []).append(
+                (e.time_range.end - e.time_range.start) / 1e3)
+    device = trace.stage_device_ms((e.name, e.time_range.start, e.time_range.end)
+                                   for e in kernel_events(events, markers=True))
+
+    def per(ms: dict) -> dict:
+        return {k: {"calls": len(v), "ms_per_call": sum(v) / len(v), "ms_per_step": sum(v) / steps}
+                for k, v in ms.items()}
+
+    return {
+        "device": card or "cpu",
+        "steps": steps, "window_ms_per_step": window / steps,
+        "device_busy_ms_per_step": busy / steps,
+        "device_busy_share": busy / window if card and window else None,
+        "kernels_per_step": len(kernels) / steps,
+        "span_host_ms": per(host), "stage_device_ms": per(device),
+    }
 
 
 def thing_classes(cfg) -> list:
@@ -448,12 +471,16 @@ def do_train(cfg, output_dir: str, resume: bool = False, max_steps: int | None =
             if profile is not None and iteration == start_iter + PROFILE_STEPS[1]:
                 profile.stop(len(run.iterations))
                 profile = None
+            trace.set_call(iteration)
             t0 = time.perf_counter()
-            host_batch = next(loader)
+            with trace.span("train.data"):
+                host_batch = next(loader)
             t1 = time.perf_counter()
-            batch = batch_to_device(host_batch, device, cfg.MODEL.PIXEL_MEAN,
-                                    cfg.MODEL.PIXEL_STD)
-            window.add(step(batch, step_generator(seed, step.state["step"])))
+            with trace.span("train.to_device"):
+                batch = batch_to_device(host_batch, device, cfg.MODEL.PIXEL_MEAN,
+                                        cfg.MODEL.PIXEL_STD)
+            with trace.span("train.step"):
+                window.add(step(batch, step_generator(seed, step.state["step"])))
             run.iterations.append(iteration)
             run.data_ms.append((t1 - t0) * 1e3)
             run.step_ms.append((time.perf_counter() - t1) * 1e3)
@@ -461,15 +488,16 @@ def do_train(cfg, output_dir: str, resume: bool = False, max_steps: int | None =
 
             last = iteration == max_iter - 1
             if iteration % LOG_PERIOD == 0 or last:
-                rows = window.flush()   # device sync
-                if main:
-                    for row in rows:
-                        for k, v in row.items():
-                            storage.put_scalar(k, v)
-                    storage.put_scalar("time/data_ms", run.data_ms[-1])
-                    storage.put_scalar("time/step_ms", run.step_ms[-1])
-                    print("[train] " + storage.log_line(max_iter, lr=rows[-1]["lr"]))
-                    storage.write()
+                with trace.span("train.logs"):
+                    rows = window.flush()   # device sync
+                    if main:
+                        for row in rows:
+                            for k, v in row.items():
+                                storage.put_scalar(k, v)
+                        storage.put_scalar("time/data_ms", run.data_ms[-1])
+                        storage.put_scalar("time/step_ms", run.step_ms[-1])
+                        print("[train] " + storage.log_line(max_iter, lr=rows[-1]["lr"]))
+                        storage.write()
 
                 # exploded-iteration budget -> restart from checkpoint
                 # (reference train_net.py:253-285: cumulative per attempt, armed

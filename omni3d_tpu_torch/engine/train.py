@@ -10,6 +10,12 @@ FastRCNN losses, and the cube branch with `decode_cube` and the cube losses.
 `make_train_step` adds the backward, the stabilizer and the optimizer;
 under a process group it follows the JAX step's shard_map (train.py:284-398)
 through `DistributedDataParallel`.
+
+Stages (`utils.trace.stage`, marked on the device while a profiler records):
+the step's step.forward, step.backward and step.optimizer, and inside the
+forward step.trunk, step.rpn_head, step.anchor_labelling, step.proposals,
+step.roi_sampling, step.pooler, step.box and step.cube; the host span
+step.skip_decision holds the step's one synchronise.
 """
 from __future__ import annotations
 
@@ -25,6 +31,7 @@ from ..models.rpn import label_and_sample_anchors, rpn_losses, select_proposals
 from ..ops.roi_align_cuda import multilevel_roi_align
 from ..parallel import dist as dist_lib
 from ..solver.build import clip_gradients, lr_factor
+from ..utils import trace
 
 TOLERANCE = 4.0  # loss-spike skip threshold (reference train_net.py:164)
 GAMMA = 0.02     # rolling-mean gain (train_net.py:166)
@@ -95,100 +102,109 @@ def compute_losses(model: CubeRCNN, batch: dict, generator: torch.Generator | No
     C = rh.NUM_CLASSES
     gt_boxes, gt_classes, gt_valid = batch["gt_boxes"], batch["gt_classes"], batch["gt_valid"]
 
-    feats, flist = (_remat_features(model, images) if cfg.TPU.REMAT_BACKBONE
-                    else model.features(images))
-    logits, deltas = model.proposal_generator["rpn_head"]([feats[f] for f in FEATURE_NAMES])
-    logits = [l.float() for l in logits]
-    deltas = [d.float() for d in deltas]
-    anchors = model.anchors([(f.shape[1], f.shape[2]) for f in flist], images.device)
-    anchors_cat = torch.cat(anchors, 0)
+    device = images.device
+    with trace.stage("step.trunk", device):
+        feats, flist = (_remat_features(model, images) if cfg.TPU.REMAT_BACKBONE
+                        else model.features(images))
+    with trace.stage("step.rpn_head", device):
+        logits, deltas = model.proposal_generator["rpn_head"]([feats[f] for f in FEATURE_NAMES])
+        logits = [l.float() for l in logits]
+        deltas = [d.float() for d in deltas]
+        anchors = model.anchors([(f.shape[1], f.shape[2]) for f in flist], device)
+        anchors_cat = torch.cat(anchors, 0)
 
     S = rh.BATCH_SIZE_PER_IMAGE
     F = int(S * rh.POSITIVE_FRACTION)
-    if noise is None:
-        num_cand = rpn_cfg.POST_NMS_TOPK_TRAIN + (gt_boxes.shape[1] if rh.PROPOSAL_APPEND_GT
-                                                  else 0)
-        noise = sampling_noise(generator, B, anchors_cat.shape[0], num_cand, images.device,
-                               img_offset)
-
-    # ---- RPN labels + losses ----
-    lab = label_and_sample_anchors(
-        anchors_cat, gt_boxes, gt_classes, gt_valid, noise["anchor_pos"], noise["anchor_neg"],
-        batch_size=rpn_cfg.BATCH_SIZE_PER_IMAGE, positive_fraction=rpn_cfg.POSITIVE_FRACTION,
-        fg_thresh=rpn_cfg.IOU_THRESHOLDS[0], ignore_thresh=rpn_cfg.IGNORE_THRESHOLD)
-    losses = rpn_losses(anchors_cat, lab["labels"], lab["matched_gt"], torch.cat(logits, 1),
-                        torch.cat(deltas, 1), batch_size=rpn_cfg.BATCH_SIZE_PER_IMAGE,
-                        objectness=rpn_cfg.OBJECTNESS_UNCERTAINTY)
-    if rpn_cfg.LOSS_WEIGHT != 1.0:
-        losses = {k: v * rpn_cfg.LOSS_WEIGHT for k, v in losses.items()}
+    # ---- the sampling noise, RPN labels + losses ----
+    with trace.stage("step.anchor_labelling", device):
+        if noise is None:
+            num_cand = rpn_cfg.POST_NMS_TOPK_TRAIN + (gt_boxes.shape[1] if rh.PROPOSAL_APPEND_GT
+                                                      else 0)
+            noise = sampling_noise(generator, B, anchors_cat.shape[0], num_cand, device,
+                                   img_offset)
+        lab = label_and_sample_anchors(
+            anchors_cat, gt_boxes, gt_classes, gt_valid, noise["anchor_pos"],
+            noise["anchor_neg"], batch_size=rpn_cfg.BATCH_SIZE_PER_IMAGE,
+            positive_fraction=rpn_cfg.POSITIVE_FRACTION, fg_thresh=rpn_cfg.IOU_THRESHOLDS[0],
+            ignore_thresh=rpn_cfg.IGNORE_THRESHOLD)
+        losses = rpn_losses(anchors_cat, lab["labels"], lab["matched_gt"], torch.cat(logits, 1),
+                            torch.cat(deltas, 1), batch_size=rpn_cfg.BATCH_SIZE_PER_IMAGE,
+                            objectness=rpn_cfg.OBJECTNESS_UNCERTAINTY)
+        if rpn_cfg.LOSS_WEIGHT != 1.0:
+            losses = {k: v * rpn_cfg.LOSS_WEIGHT for k, v in losses.items()}
 
     # ---- proposals (detached, reference RPN.predict_proposals no_grad) ----
-    with torch.no_grad():
+    with torch.no_grad(), trace.stage("step.proposals", device):
         prop_boxes, _, prop_valid = select_proposals(
             anchors, [l.detach() for l in logits], [d.detach() for d in deltas],
             batch["hw"].float(), rpn_cfg.PRE_NMS_TOPK_TRAIN, rpn_cfg.POST_NMS_TOPK_TRAIN,
             rpn_cfg.NMS_THRESH)
 
     # ---- sample proposals for the ROI heads ----
-    sampled = label_and_sample_proposals(
-        prop_boxes, prop_valid, gt_boxes, gt_classes, gt_valid, C,
-        noise["prop_pos"], noise["prop_neg"], batch_size=S,
-        positive_fraction=rh.POSITIVE_FRACTION, iou_thresh=rh.IOU_THRESHOLDS[0],
-        ignore_thresh=rpn_cfg.IGNORE_THRESHOLD, append_gt=rh.PROPOSAL_APPEND_GT)
+    with trace.stage("step.roi_sampling", device):
+        sampled = label_and_sample_proposals(
+            prop_boxes, prop_valid, gt_boxes, gt_classes, gt_valid, C,
+            noise["prop_pos"], noise["prop_neg"], batch_size=S,
+            positive_fraction=rh.POSITIVE_FRACTION, iou_thresh=rh.IOU_THRESHOLDS[0],
+            ignore_thresh=rpn_cfg.IGNORE_THRESHOLD, append_gt=rh.PROPOSAL_APPEND_GT)
 
     # ---- one pooler call over the box RoIs and (when on) the cube RoIs:
     # one forward and one backward kernel launch per step ----
     P = cfg.MODEL.ROI_BOX_HEAD.POOLER_RESOLUTION
     with_cube = ch.LOSS_W_3D > 0
     fg_boxes = sampled["boxes"][:, :F]
-    rois = sampled["boxes"]
-    if with_cube:
-        rois = torch.cat([rois, scale_proposals(fg_boxes, ch.SCALE_ROI_BOXES)], 1)
-    pooled_all = multilevel_roi_align(flist, rois, FEATURE_STRIDES, P,
-                                      cfg.TPU.ROI_SAMPLING_RATIO)
+    with trace.stage("step.pooler", device):
+        rois = sampled["boxes"]
+        if with_cube:
+            rois = torch.cat([rois, scale_proposals(fg_boxes, ch.SCALE_ROI_BOXES)], 1)
+        pooled_all = multilevel_roi_align(flist, rois, FEATURE_STRIDES, P,
+                                          cfg.TPU.ROI_SAMPLING_RATIO)
     pooled = pooled_all[:, :S]
 
     # ---- box branch ----
     heads = model.roi_heads
-    scores2d, deltas2d = heads.box_predictor(heads.box_head(pooled.reshape(B * S, *pooled.shape[2:])))
-    gt_matched = torch.gather(gt_boxes, 1, sampled["gt_idx"][..., None].expand(-1, -1, 4))
-    losses.update(fast_rcnn_losses(
-        scores2d.float(), deltas2d.float(), sampled["boxes"].reshape(B * S, 4),
-        sampled["classes"].reshape(B * S), sampled["valid"].reshape(B * S),
-        gt_matched.reshape(B * S, 4), C, tuple(cfg.MODEL.ROI_BOX_HEAD.BBOX_REG_WEIGHTS)))
+    with trace.stage("step.box", device):
+        scores2d, deltas2d = heads.box_predictor(heads.box_head(pooled.reshape(B * S, *pooled.shape[2:])))
+        gt_matched = torch.gather(gt_boxes, 1, sampled["gt_idx"][..., None].expand(-1, -1, 4))
+        losses.update(fast_rcnn_losses(
+            scores2d.float(), deltas2d.float(), sampled["boxes"].reshape(B * S, 4),
+            sampled["classes"].reshape(B * S), sampled["valid"].reshape(B * S),
+            gt_matched.reshape(B * S, 4), C, tuple(cfg.MODEL.ROI_BOX_HEAD.BBOX_REG_WEIGHTS)))
 
-    metrics = {
-        "roi/num_fg": sampled["num_fg"].float().mean(),
-        "rpn/num_pos_anchors": (lab["labels"] == 1).sum(1).float().mean(),
-        "rpn/num_neg_anchors": (lab["labels"] == 0).sum(1).float().mean(),
-    }
+        metrics = {
+            "roi/num_fg": sampled["num_fg"].float().mean(),
+            "rpn/num_pos_anchors": (lab["labels"] == 1).sum(1).float().mean(),
+            "rpn/num_neg_anchors": (lab["labels"] == 0).sum(1).float().mean(),
+        }
 
     # ---- cube branch on the foreground slots ----
     if with_cube:
-        pooled_cube = pooled_all[:, S:]
-        fg_classes = sampled["classes"][:, :F].clamp(0, C - 1)
-        cube_out = heads.cube_head(pooled_cube.reshape(B * F, *pooled_cube.shape[2:]))
-        cube_out = tuple(t.float() if t is not None else None for t in cube_out)
-        Ks_scaled = batch["Ks"] / batch["ratios"][:, None, None]
-        Ks_scaled[:, 2, 2] = 1.0
-        Ks_per_box = Ks_scaled[:, None].expand(B, F, 3, 3).reshape(-1, 3, 3)
-        # the priors are buffers: no gradient (stop_gradient in the JAX package)
-        cube = decode_cube(
-            cube_out, fg_classes.reshape(-1), fg_boxes.reshape(-1, 4), Ks_per_box,
-            Ks_per_box[:, 1, 1], heads.priors_dims_per_cat, z_type=ch.Z_TYPE,
-            virtual_depth=ch.VIRTUAL_DEPTH, virtual_focal=ch.VIRTUAL_FOCAL,
-            dims_priors_enabled=ch.DIMS_PRIORS_ENABLED, dims_priors_func=ch.DIMS_PRIORS_FUNC,
-            allocentric=ch.ALLOCENTRIC_POSE, priors_z_stats=heads.priors_z_stats,
-            priors_z_scales=heads.priors_z_scales, cluster_bins=ch.CLUSTER_BINS)
-        gt_idx = sampled["gt_idx"][:, :F]
-        gt_b3d = torch.gather(batch["gt_boxes3D"], 1, gt_idx[..., None].expand(-1, -1, 6))
-        gt_pose = torch.gather(batch["gt_poses"], 1,
-                               gt_idx[..., None, None].expand(-1, -1, 3, 3))
-        closs, cmetrics = cube_losses(cube, sampled["fg"][:, :F].reshape(-1),
-                                      gt_b3d.reshape(-1, 6), gt_pose.reshape(-1, 3, 3),
-                                      Ks_per_box, ch, fg_boxes.reshape(-1, 4))
-        losses.update(closs)
-        metrics.update(cmetrics)
+        with trace.stage("step.cube", device):
+            pooled_cube = pooled_all[:, S:]
+            fg_classes = sampled["classes"][:, :F].clamp(0, C - 1)
+            cube_out = heads.cube_head(pooled_cube.reshape(B * F, *pooled_cube.shape[2:]))
+            cube_out = tuple(t.float() if t is not None else None for t in cube_out)
+            Ks_scaled = batch["Ks"] / batch["ratios"][:, None, None]
+            Ks_scaled[:, 2, 2] = 1.0
+            Ks_per_box = Ks_scaled[:, None].expand(B, F, 3, 3).reshape(-1, 3, 3)
+            # the priors are buffers: no gradient (stop_gradient in the JAX package)
+            cube = decode_cube(
+                cube_out, fg_classes.reshape(-1), fg_boxes.reshape(-1, 4), Ks_per_box,
+                Ks_per_box[:, 1, 1], heads.priors_dims_per_cat, z_type=ch.Z_TYPE,
+                virtual_depth=ch.VIRTUAL_DEPTH, virtual_focal=ch.VIRTUAL_FOCAL,
+                dims_priors_enabled=ch.DIMS_PRIORS_ENABLED,
+                dims_priors_func=ch.DIMS_PRIORS_FUNC, allocentric=ch.ALLOCENTRIC_POSE,
+                priors_z_stats=heads.priors_z_stats, priors_z_scales=heads.priors_z_scales,
+                cluster_bins=ch.CLUSTER_BINS)
+            gt_idx = sampled["gt_idx"][:, :F]
+            gt_b3d = torch.gather(batch["gt_boxes3D"], 1, gt_idx[..., None].expand(-1, -1, 6))
+            gt_pose = torch.gather(batch["gt_poses"], 1,
+                                   gt_idx[..., None, None].expand(-1, -1, 3, 3))
+            closs, cmetrics = cube_losses(cube, sampled["fg"][:, :F].reshape(-1),
+                                          gt_b3d.reshape(-1, 6), gt_pose.reshape(-1, 3, 3),
+                                          Ks_per_box, ch, fg_boxes.reshape(-1, 4))
+            losses.update(closs)
+            metrics.update(cmetrics)
 
     total = sum(losses.values())
     return total, losses, metrics
@@ -267,14 +283,17 @@ def make_train_step(cfg, model: CubeRCNN, optimizer: torch.optim.Optimizer,
             return compute_losses(model, *args)
 
     def step(batch, generator=None, noise=None):
+        trace.set_call(state["step"])
         saved = [b.clone() for b in bn_stats] if stabilize_on else []
         optimizer.zero_grad(set_to_none=False)
-        total, losses, metrics = losses_fn(batch, generator, noise,
-                                           rank * batch["images"].shape[0])
-        total.backward()
-        for p in params:   # parameters the forward never reached (e.g. the DLA
-            if p.grad is None:   # trees' unused projections): zero, as JAX's grads
-                p.grad = torch.zeros_like(p)
+        with trace.stage("step.forward", device):
+            total, losses, metrics = losses_fn(batch, generator, noise,
+                                               rank * batch["images"].shape[0])
+        with trace.stage("step.backward", device):
+            total.backward()
+            for p in params:   # parameters the forward never reached (e.g. the DLA
+                if p.grad is None:   # trees' unused projections): zero, as JAX's grads
+                    p.grad = torch.zeros_like(p)
         if distributed:   # one fused all-reduce of the logs (JAX train.py:323-329)
             names = list(losses) + list(metrics)
             means = dist_lib.mean_across_ranks(
@@ -284,20 +303,22 @@ def make_train_step(cfg, model: CubeRCNN, optimizer: torch.optim.Optimizer,
             metrics = dict(zip(names[len(losses):], means[1 + len(losses):]))
         ok = True
         if stabilize_on:
-            # max-abs norms: inf or NaN exactly when an element is (no overflow)
-            grad_finite = torch.isfinite(torch.stack(
-                torch._foreach_norm([p.grad for p in params], float("inf")))).all()
-            diverging, state["recent_loss"] = _stabilizer(total.detach(), state["recent_loss"],
-                                                          grad_finite)
-            ok = not bool(diverging)   # the step's one host sync: the skip decision
+            with trace.span("step.skip_decision"):
+                # max-abs norms: inf or NaN exactly when an element is (no overflow)
+                grad_finite = torch.isfinite(torch.stack(
+                    torch._foreach_norm([p.grad for p in params], float("inf")))).all()
+                diverging, state["recent_loss"] = _stabilizer(
+                    total.detach(), state["recent_loss"], grad_finite)
+                ok = not bool(diverging)   # the step's one host sync: the skip decision
         lr = cfg.SOLVER.BASE_LR * lr_factor(cfg, state["step"])
         if ok:
             if distributed:
                 for b, m in zip(bn_stats, dist_lib.mean_across_ranks(bn_stats)):
                     b.copy_(m)
-            clip_gradients(cfg, params)
-            optimizer.step()
-            scheduler.step()
+            with trace.stage("step.optimizer", device):
+                clip_gradients(cfg, params)
+                optimizer.step()
+                scheduler.step()
         else:
             for b, s in zip(bn_stats, saved):
                 b.copy_(s)

@@ -22,6 +22,7 @@ import torch.nn as nn
 
 from ..config.cfg import StaticCfg
 from ..ops.roi_align_cuda import multilevel_roi_align
+from ..utils import trace
 from . import anchors as anchor_lib
 from .dla import DLA
 from .extra_backbones import DenseNet121, MNASNet10, ShuffleNetV2
@@ -243,44 +244,54 @@ def inference(model: CubeRCNN, images, Ks, im_scales_ratio, hw=None, oracle=None
     Returns a dict of per-image padded detections: boxes, boxes_orig,
       scores_2d, scores, classes, valid, scores_full, center_cam, dims,
       pose, corners, center_2D, proposal_boxes, proposal_valid.
+
+    Its stages (`utils.trace.stage`, marked inside every graph that
+    `inference_step` captures): inference.trunk, inference.proposals,
+    inference.box and inference.cube; the oracle path has trunk and cube.
     """
     cfg = model.cfg
     B, H, W, _ = images.shape
     C = cfg.MODEL.ROI_HEADS.NUM_CLASSES
-    feats, flist = model.features(images)
+    device = images.device
+    with trace.stage("inference.trunk", device):
+        feats, flist = model.features(images)
 
     if oracle is not None:
         o_boxes, o_classes, o_valid = oracle
         k = o_boxes.shape[1]
-        dets = {
-            "boxes": o_boxes,
-            "scores": o_valid.float(),
-            "classes": o_classes.to(torch.int32),
-            "valid": o_valid,
-            "scores_full": torch.zeros((B, k, C), device=images.device),
-        }
+        with trace.stage("inference.cube", device):
+            dets = {
+                "boxes": o_boxes,
+                "scores": o_valid.float(),
+                "classes": o_classes.to(torch.int32),
+                "valid": o_valid,
+                "scores_full": torch.zeros((B, k, C), device=device),
+            }
+            return _cube_branch_outputs(model, flist, dets, Ks, im_scales_ratio,
+                                        sampling_ratio, o_boxes, o_valid)
+
+    with trace.stage("inference.proposals", device):
+        logits, deltas = model.proposal_generator["rpn_head"]([feats[f] for f in FEATURE_NAMES])
+        anchors = model.anchors([(f.shape[1], f.shape[2]) for f in flist], device)
+        image_hw = (padded_hw(B, H, W, device) if hw is None
+                    else torch.as_tensor(hw, dtype=torch.float32, device=device))
+        prop_boxes, _, prop_valid = select_proposals(
+            anchors, [l.float() for l in logits], [d.float() for d in deltas], image_hw,
+            pre_nms_topk, post_nms_topk, rpn_nms_thresh)
+
+    with trace.stage("inference.box", device):
+        heads = model.roi_heads
+        P = cfg.MODEL.ROI_BOX_HEAD.POOLER_RESOLUTION
+        pooled = multilevel_roi_align(flist, prop_boxes, FEATURE_STRIDES, P, sampling_ratio)
+        scores2d, deltas2d = heads.box_predictor(heads.box_head(pooled.reshape(B * post_nms_topk, *pooled.shape[2:])))
+        dets = fast_rcnn_inference(
+            scores2d.reshape(B, post_nms_topk, C + 1).float(),
+            deltas2d.reshape(B, post_nms_topk, C * 4).float(),
+            prop_boxes, prop_valid, image_hw, C, score_thresh, nms_thresh, topk,
+            nms_candidates, tuple(cfg.MODEL.ROI_BOX_HEAD.BBOX_REG_WEIGHTS))
+    with trace.stage("inference.cube", device):
         return _cube_branch_outputs(model, flist, dets, Ks, im_scales_ratio,
-                                    sampling_ratio, o_boxes, o_valid)
-
-    logits, deltas = model.proposal_generator["rpn_head"]([feats[f] for f in FEATURE_NAMES])
-    anchors = model.anchors([(f.shape[1], f.shape[2]) for f in flist], images.device)
-    image_hw = (padded_hw(B, H, W, images.device) if hw is None
-                else torch.as_tensor(hw, dtype=torch.float32, device=images.device))
-    prop_boxes, _, prop_valid = select_proposals(
-        anchors, [l.float() for l in logits], [d.float() for d in deltas], image_hw,
-        pre_nms_topk, post_nms_topk, rpn_nms_thresh)
-
-    heads = model.roi_heads
-    P = cfg.MODEL.ROI_BOX_HEAD.POOLER_RESOLUTION
-    pooled = multilevel_roi_align(flist, prop_boxes, FEATURE_STRIDES, P, sampling_ratio)
-    scores2d, deltas2d = heads.box_predictor(heads.box_head(pooled.reshape(B * post_nms_topk, *pooled.shape[2:])))
-    dets = fast_rcnn_inference(
-        scores2d.reshape(B, post_nms_topk, C + 1).float(),
-        deltas2d.reshape(B, post_nms_topk, C * 4).float(),
-        prop_boxes, prop_valid, image_hw, C, score_thresh, nms_thresh, topk,
-        nms_candidates, tuple(cfg.MODEL.ROI_BOX_HEAD.BBOX_REG_WEIGHTS))
-    return _cube_branch_outputs(model, flist, dets, Ks, im_scales_ratio,
-                                sampling_ratio, prop_boxes, prop_valid)
+                                    sampling_ratio, prop_boxes, prop_valid)
 
 
 def _cube_branch_outputs(model, flist, dets, Ks, im_scales_ratio, sampling_ratio,
@@ -428,7 +439,14 @@ class InferenceGraphs:
     read the weights in place: an optimizer step or `load_state_dict` is
     seen by the next replay. A parameter or buffer rebound to new storage
     drops every graph (`recaptures` counts it); they are captured again.
-    A failed capture or replay raises; nothing falls back to eager."""
+    A failed capture or replay raises; nothing falls back to eager.
+
+    Host spans (`utils.trace.span`): inference_step.prepare (the key, the
+    address check, the lookup and the input copies, to the replay's
+    launch), inference_step.replay, inference_step.clone_out, and
+    inference_step.capture (a key's first call: warm-up and capture). Each
+    graph holds its stages' marker kernels (`utils.trace.stage`), so the
+    kernel records of a profiled replay bound its stages."""
 
     def __init__(self, device: torch.device):
         self.device = device
@@ -438,20 +456,34 @@ class InferenceGraphs:
         self.storage = None
         self.recaptures = 0     # times a rebound parameter or buffer dropped the graphs
 
-    def __call__(self, model, storage, key, args, kw):
-        if self.graphs and storage != self.storage:
-            self.graphs.clear()
-            self.pool = torch.cuda.graph_pool_handle()   # the old pool frees with its graphs
-            self.recaptures += 1
-        entry = self.graphs.get(key)
+    def __call__(self, model, args, kw):
+        """`inference(model, *args, **kw)` through this cache's graphs:
+        args = (images, Ks, im_scales_ratio, hw, oracle)."""
+        with trace.span("inference_step.prepare"):
+            images, Ks, im_scales_ratio, hw, oracle = args
+            if hw is not None:
+                hw = torch.as_tensor(hw, dtype=torch.float32, device=images.device)
+                args = (images, Ks, im_scales_ratio, hw, oracle)
+            modules = list(model.modules())
+            key = _graph_key(modules, images, Ks, im_scales_ratio, hw, oracle, kw)
+            storage = _storage(modules)
+            if self.graphs and storage != self.storage:
+                self.graphs.clear()
+                self.pool = torch.cuda.graph_pool_handle()   # the old pool frees with its graphs
+                self.recaptures += 1
+            entry = self.graphs.get(key)
+            if entry is not None:
+                for dst, src in zip(entry.inputs, _flat(args)):
+                    dst.copy_(src)
         if entry is None:
             self.storage = storage
-            return self._capture(model, key, args, kw)
-        for dst, src in zip(entry.inputs, _flat(args)):
-            dst.copy_(src)
-        entry.graph.replay()
+            with trace.span("inference_step.capture"):
+                return self._capture(model, key, args, {**_STATIC_DEFAULTS, **kw})
+        with trace.span("inference_step.replay"):
+            entry.graph.replay()
         inference_step.replays += 1
-        return {k: v.clone() for k, v in entry.outputs.items()}
+        with trace.span("inference_step.clone_out"):
+            return {k: v.clone() for k, v in entry.outputs.items()}
 
     def _capture(self, model, key, args, kw):
         current = torch.cuda.current_stream()
@@ -504,23 +536,20 @@ def inference_step(model: CubeRCNN, images, Ks, im_scales_ratio, hw=None, oracle
     `hw` becomes a float32 tensor on the images' device ahead of the key, so
     it is a graph input. `inference_step.captures` and `.replays` count this
     process's graph captures and replays (the kernels' wrappers count their
-    launches during warm-ups and captures only: a replay runs no Python)."""
+    launches during warm-ups and captures only: a replay runs no Python);
+    their sum is the index the call's spans carry."""
     if images.device.type != "cuda":
         return inference(model, images, Ks, im_scales_ratio, hw=hw, oracle=oracle,
                          **inference_kwargs)
-    if hw is not None:
-        hw = torch.as_tensor(hw, dtype=torch.float32, device=images.device)
-    modules = list(model.modules())
-    key = _graph_key(modules, images, Ks, im_scales_ratio, hw, oracle, inference_kwargs)
+    trace.set_call(inference_step.captures + inference_step.replays)
     with torch.no_grad(), torch.cuda.device(images.device):
         if model.inference_graphs is None:
             model.inference_graphs = InferenceGraphs(images.device)
         elif model.inference_graphs.device != images.device:
             raise ValueError(f"the model's graphs are on {model.inference_graphs.device}, "
                              f"the inputs on {images.device}")
-        return model.inference_graphs(model, _storage(modules), key,
-                                      (images, Ks, im_scales_ratio, hw, oracle),
-                                      {**_STATIC_DEFAULTS, **inference_kwargs})
+        return model.inference_graphs(model, (images, Ks, im_scales_ratio, hw, oracle),
+                                      inference_kwargs)
 
 
 inference_step.captures = 0

@@ -47,7 +47,7 @@ def _sync(device):
 def _rank(rank, world, port, args, result_path):
     """One rank of a run at world size `world`; rank 0 writes the result."""
     from ..config import get_default_cfg
-    from ..utils.benchtime import device_busy_ms
+    from ..utils.benchtime import device_busy_ms, kernel_events
     from ..parallel import dist as dist_lib
     from .synthetic import synthetic_trainer, train_batch
 
@@ -82,9 +82,8 @@ def _rank(rank, world, port, args, result_path):
                 step(batch, gen)
             _sync(device)
         # kernels only: the profiler also puts the "nccl:all_reduce" annotation
-        # ranges on the device's timeline
-        kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
-                   and e.name and not e.name.startswith(("Memcpy", "Memset", "nccl:"))]
+        # ranges and the step's spans on the device's timeline
+        kernels = [e for e in kernel_events(prof.events()) if not e.name.startswith("nccl:")]
         nccl = [e for e in kernels if "nccl" in e.name.lower()]
         grad_bytes = sum(p.numel() * p.element_size() for p in model.parameters()
                          if p.requires_grad)

@@ -28,6 +28,8 @@ from dataclasses import dataclass
 
 import torch
 
+from . import trace
+
 # Datasheet rates (NVIDIA H100 SXM5: dense, no sparsity, at the 700 W limit),
 # keyed by torch.cuda.get_device_name()
 PEAKS = {
@@ -109,6 +111,18 @@ def in_turns(cases: dict, rounds: int) -> dict:
                    "ms": v} for name, v in got.items()}
 
 
+def kernel_events(events, markers: bool = False) -> list:
+    """The profiler's device records that are kernels: copies and fills
+    left out, and so are the spans of `utils.trace`: the device-side ranges
+    of its host spans (`record_function`), which the profiler lists as user
+    annotations, and its stages' marker kernels unless `markers`."""
+    return [e for e in events
+            if e.device_type == torch.autograd.DeviceType.CUDA and e.name
+            and not e.name.startswith(("Memcpy", "Memset"))
+            and not getattr(e, "is_user_annotation", False)
+            and (markers or not trace.MARK.search(e.name))]
+
+
 def device_busy_ms(events) -> float:
     """Union of the [start, end) intervals of profiler events, ms."""
     spans = sorted((e.time_range.start, e.time_range.end) for e in events)
@@ -152,9 +166,7 @@ def device_profile(fn, calls: int, device: torch.device, top: int = 10) -> dict:
             fn()
         torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) * 1e3 / calls
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA and e.name
-               and not e.name.startswith(("Memcpy", "Memset"))]
+    kernels = kernel_events(prof.events())
     by_name: dict[str, float] = {}
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0.0) + (e.time_range.end - e.time_range.start)

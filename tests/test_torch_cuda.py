@@ -1,8 +1,9 @@
 """The CUDA ROIAlign kernels (forward and backward) vs their plain PyTorch
 versions, the training entry point, a one-rank NCCL step, the
 evaluation's IoU3D, the demo, the cuboid rasterizer, the inference bench,
-the stage chain, the NMS kernels and `inference_step`'s CUDA graphs, on the
-card.
+the stage chain, the NMS kernels, `inference_step`'s CUDA graphs and the
+stages that `utils.trace` times inside them and inside the training step,
+on the card.
 
 These tests need a CUDA device and skip without one. They import no JAX, so
 they run on a machine without it; there, skip tests/conftest.py (it imports
@@ -858,3 +859,101 @@ def test_inference_step_of_a_training_model_sees_optimizer_steps(device):
     assert (rcnn3d.inference_step.captures - counts[0],
             rcnn3d.inference_step.replays - counts[1]) == (1, 1)
     assert model.inference_graphs.recaptures == 0
+
+
+# utils.trace on the card: the stages' marker kernels inside the replayed
+# graphs and the training step, read from the profiler's kernel records with
+# no synchronise of their own
+
+def _profiled():
+    return torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                              torch.profiler.ProfilerActivity.CUDA])
+
+
+def _stage_ms(prof) -> dict:
+    from omni3d_tpu_torch.utils import benchtime, trace
+    return trace.stage_device_ms((e.name, e.time_range.start, e.time_range.end)
+                                 for e in benchtime.kernel_events(prof.events(), markers=True))
+
+
+@pytest.mark.cuda
+def test_inference_step_times_its_stages_only_while_profiled(device, monkeypatch):
+    """A capture launches the four stages' markers into the graph and an
+    unprofiled eager call none; three profiled replays, each followed by
+    the caller's synchronise, hold each stage's markers three times in
+    their kernel records, each stage busy > 0 and the four within the
+    replays' busy time, and the host spans of each call; the replays still
+    equal eager."""
+    from omni3d_tpu_torch.models import rcnn3d
+    from omni3d_tpu_torch.utils import benchtime, trace
+
+    model, kw = _narrow_model(device)
+    images, Ks, ratios, hw = _batch(device, 2, 96, 128)
+    launched = []
+    real_mark = trace._mark
+    monkeypatch.setattr(trace, "_mark", lambda i, d: launched.append(i) or real_mark(i, d))
+    want = rcnn3d.inference(model, images, Ks, ratios, hw=hw, **kw)
+    assert launched == []
+    step = lambda: rcnn3d.inference_step(model, images, Ks, ratios, hw=hw, **kw)  # noqa: E731
+    step()                                     # warm-up and capture
+    names = ["inference.trunk", "inference.proposals", "inference.box", "inference.cube"]
+    assert launched == [2 * trace.STAGES.index(n) + k for n in names for k in (0, 1)]
+    _assert_equal(step(), want, "unprofiled replay")
+    with _profiled() as prof:
+        for _ in range(3):
+            _assert_equal(step(), want, "profiled replay")
+            torch.cuda.synchronize()
+    stages = _stage_ms(prof)
+    assert sorted(stages) == sorted(names)
+    for n in names:
+        assert len(stages[n]) == 3 and min(stages[n]) > 0, (n, stages[n])
+    busy = benchtime.device_busy_ms(benchtime.kernel_events(prof.events()))
+    assert sum(sum(v) for v in stages.values()) <= busy
+    host = [e.name for e in prof.events() if e.name.startswith(trace.PREFIX)
+            and e.device_type == torch.autograd.DeviceType.CPU]
+    for n in ("prepare", "replay", "clone_out"):
+        assert host.count(f"{trace.PREFIX}inference_step.{n}") == 3, n
+
+
+@pytest.mark.cuda
+def test_training_step_stage_readings_need_no_synchronise(device, monkeypatch):
+    """Three profiled training steps call no `torch.cuda.synchronize`, and
+    their kernel records give each step's stages (the optimizer's for each
+    accepted step), each busy > 0, the forward's within the step's; an
+    unprofiled step launches no marker."""
+    import pathlib
+
+    from omni3d_tpu_torch.config import get_default_cfg
+    from omni3d_tpu_torch.tools.synthetic import synthetic_trainer
+    from omni3d_tpu_torch.utils import trace
+
+    cfg = get_default_cfg()
+    cfg.merge_from_file(str(pathlib.Path(__file__).resolve().parents[1] / "configs"
+                            / "cubercnn_DLA34_FPN.yaml"))
+    cfg.merge_from_list(list(NARROW))
+    _, _, step, batch = synthetic_trainer(cfg, torch.bfloat16, 2, device, img=256)
+    step(batch, torch.Generator().manual_seed(0))
+    torch.cuda.synchronize()
+    launched = []
+    real_mark = trace._mark
+    monkeypatch.setattr(trace, "_mark", lambda i, d: launched.append(i) or real_mark(i, d))
+    step(batch, torch.Generator().manual_seed(1))
+    assert launched == []
+    syncs = []
+    real_sync = torch.cuda.synchronize
+    with _profiled() as prof:
+        monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: syncs.append(a))
+        accepted = [step(batch, torch.Generator().manual_seed(2 + i))["finite"] == 1.0
+                    for i in range(3)]
+        monkeypatch.setattr(torch.cuda, "synchronize", real_sync)
+        real_sync()
+    assert syncs == [] and launched
+    stages = _stage_ms(prof)
+    for n in ("step.forward", "step.backward", "step.trunk", "step.anchor_labelling",
+              "step.roi_sampling", "step.cube", "step.optimizer"):
+        want = sum(accepted) if n == "step.optimizer" else 3
+        assert len(stages.get(n, [])) == want and min(stages[n]) > 0, (n, stages.get(n))
+    inner = [n for n in trace.STAGES if n.startswith("step.")
+             and n not in ("step.forward", "step.backward", "step.optimizer")]
+    for k in range(3):
+        assert sum(stages[n][k] for n in inner) <= stages["step.forward"][k] * (1 + 1e-6)
