@@ -46,5 +46,5 @@ def cell(name: str) -> tuple:
     batch = min(spec["batch"], 2)
     spec = dict(spec, source_hw=[96, 120], batch=batch,
                 pool_frames=4 * batch, check_calls=2, trace_calls=2, warmup_calls=1,
-                pool_batches=4, check_steps=2, trace_steps=1)
+                pool_batches=4, check_steps=2, trace_steps=1, episode_steps=4)
     return bench, spec, config

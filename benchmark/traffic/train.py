@@ -3,19 +3,25 @@ seeded pool of batches made on the device.
 
 Set-up builds ONE step object (`engine.train.make_train_step` over the
 port's train-mode model with the benchmark's weights, the config's SGD and
-LR schedule) and drives it through its first `check_steps` steps on
-distinct batches; the window then drives the same object on, cycling the
-pool. Each step gets its own CPU generator for the sampling noise, made
-from (seed, step). The batches: images of the cell's frame size, normalized
-with zero in the padding, and the frozen synthetic ground truth, all drawn
-on the device from the seed. Parameters come from the cell's workload file.
+LR schedule) and drives it through its first `check_steps` (K) steps on
+distinct batches. Its state is then copied to the host (`Snapshot`), and
+the window repeats one fixed episode of `episode_steps` (E) steps from that
+state: steps K ... K + E - 1 on `pool[s % len(pool)]`, the state put back
+in place between episodes, out of the window's time. The window ends at
+the first episode boundary after `--seconds`, so every run, of any
+program, times and judges the same E steps, whatever its speed. Each step
+gets its own CPU generator for the sampling noise, made from (seed, step).
+The batches: images of the cell's frame size, normalized with zero in the
+padding, and the frozen synthetic ground truth, all drawn on the device
+from the seed. Parameters come from the cell's workload file.
 
 End-to-end: `train_img_per_s` (images of the window's accepted steps over
-the window's time, to the end of its last step; a step the stabilizer
-skips counts as failed), `peak_mem_gib`.
+the episodes' time, each to the end of its last step; a step the
+stabilizer skips counts as failed), `peak_mem_gib`.
 """
 from __future__ import annotations
 
+import copy
 import statistics
 import time
 
@@ -61,11 +67,68 @@ def batch_pool(spec: dict, cfg: dict, seed: int, device) -> list:
 FAULTS = ("half_batch", "frozen_head")
 
 
+def _host(t: torch.Tensor) -> torch.Tensor:
+    """A copy of `t` in host memory, pinned when `t` is on the card."""
+    return torch.empty(t.shape, dtype=t.dtype, pin_memory=t.is_cuda).copy_(t)
+
+
+class Snapshot:
+    """Everything a step object carries from one step to the next, in host
+    memory: the model's parameters and buffers (BN running statistics
+    included), the optimizer's per-parameter state (the momentum), the LR
+    schedule's state and each group's `lr`, and the side's `COUNTERS` (the
+    step count, the skips, the stabilizer's rolling mean). `restore` puts
+    it back in place, into the tensors the side holds, so the optimizer's
+    state and the step's BN list keep their identities and nothing is
+    allocated on the card."""
+
+    def __init__(self, side):
+        opt = side.optimizer
+        self.stateful = set(opt.state)
+        self.tensors = [_host(t) for t in self._tensors(side)]
+        self.schedule = copy.deepcopy(side.scheduler.state_dict())
+        self.lrs = [g["lr"] for g in opt.param_groups]
+        live = side.counters
+        self.counters = {k: _host(live[k]) if torch.is_tensor(live[k]) else live[k]
+                         for k in side.COUNTERS}
+
+    @staticmethod
+    def _tensors(side) -> list:
+        opt = side.optimizer
+        return [*side.model.state_dict().values(),
+                *(v for g in opt.param_groups for p in g["params"]
+                  for _, v in sorted(opt.state.get(p, {}).items()) if torch.is_tensor(v))]
+
+    def restore(self, side, sync) -> float:
+        """Put the snapshot back into `side`, synchronised before and
+        after; its seconds."""
+        sync()
+        t0 = time.perf_counter()
+        opt = side.optimizer
+        for p in [p for p in opt.state if p not in self.stateful]:
+            del opt.state[p]
+        with torch.no_grad():
+            for t, h in zip(self._tensors(side), self.tensors, strict=True):
+                t.copy_(h, non_blocking=True)
+            for k, v in self.counters.items():
+                if torch.is_tensor(v):
+                    side.counters[k].copy_(v, non_blocking=True)
+                else:
+                    side.counters[k] = v
+        side.scheduler.load_state_dict(copy.deepcopy(self.schedule))
+        for g, lr in zip(opt.param_groups, self.lrs, strict=True):
+            g["lr"] = lr
+        sync()
+        return time.perf_counter() - t0
+
+
 class Program:
     """The port's training step object and what the check reads of it. A
     planted fault (`--substitute`): `half_batch`, half of each batch left
     out and the mean taken over the rest; `frozen_head`, the cube head's
     parameters put back after each step (one group's update left out)."""
+
+    COUNTERS = ("step", "skipped", "recent_loss")   # of `counters`, the step's state
 
     def __init__(self, ctx):
         from omni3d_tpu_torch.engine.train import make_train_step
@@ -76,8 +139,9 @@ class Program:
         self.model = rcnn3d.build_model(cfg, device=ctx.device, train=True)
         self.model.load_state_dict(init_state(shapes_of(self.model), ctx.seed, ctx.device))
         self.optimizer = build_optimizer(cfg, self.model)
-        self.step = make_train_step(cfg, self.model, self.optimizer,
-                                    build_lr_schedule(cfg, self.optimizer))
+        self.scheduler = build_lr_schedule(cfg, self.optimizer)
+        self.step = make_train_step(cfg, self.model, self.optimizer, self.scheduler)
+        self.counters = self.step.state
         self.fault = ctx.substitute
         if self.fault not in (None, *FAULTS):
             raise ValueError(f"unknown substitute {self.fault!r}")
@@ -113,12 +177,16 @@ class Reference:
     """The plain step in float32 (or, as the control, with fp8-rounded
     products) from the same weights."""
 
+    COUNTERS = ("skipped", "recent")   # of `counters`, the trainer's attributes
+
     def __init__(self, ctx, fp8: bool = False):
         model = ref.build(ctx.config["cfg"], ctx.device, train=True)
         model.load_state_dict(init_state(shapes_of(model), ctx.seed, ctx.device))
         model.checkpoint_trunk = True
         self.model = ref.set_fp8(model, fp8)
         self.trainer = ref.Trainer(self.model)
+        self.optimizer, self.scheduler = self.trainer.optimizer, self.trainer.scheduler
+        self.counters = vars(self.trainer)
 
     def __call__(self, batch, generator) -> bool:
         skipped = self.trainer.skipped
@@ -169,33 +237,43 @@ def run(ctx) -> dict:
     ctx.sync()
     setup_s = ctx.elapsed()
 
-    ok = failed = 0
-    s = K
-    t0 = time.perf_counter()
-    while True:
-        if side(pool[s % len(pool)], step_generator(ctx.seed, s)):
-            ok += 1
-        else:
-            failed += 1
-        s += 1
-        if time.perf_counter() - t0 >= ctx.seconds:
-            break
-    ctx.sync()
-    window_s = time.perf_counter() - t0
-    ctx.note(f"window {window_s:.3f} s, {ok + failed} steps, {1e3 * window_s / (ok + failed):.3f} "
-             f"ms per step; set-up losses {seen['losses']}")
+    E = spec["episode_steps"]
+    if E % len(pool):
+        raise ValueError("an episode must pass over the pool a whole number of times")
+    snapshot = Snapshot(side)    # out of set-up and of the window
+
+    def episode_step(s: int) -> bool:
+        return side(pool[s % len(pool)], step_generator(ctx.seed, s))
+
+    ok = failed = episodes = restores = 0
+    window_s = restore_s = 0.0
+    per_episode = []
+    while episodes == 0 or window_s < ctx.seconds:
+        if episodes:
+            restore_s += snapshot.restore(side, ctx.sync)
+            restores += 1
+        t0 = time.perf_counter()
+        skips = [s for s in range(K, K + E) if not episode_step(s)]
+        ctx.sync()
+        window_s += time.perf_counter() - t0
+        episodes += 1
+        ok, failed = ok + E - len(skips), failed + len(skips)
+        per_episode.append((skips, float(side.last_loss)))
+    ctx.note(f"window {window_s:.3f} s, {episodes} episodes of steps {K}-{K + E - 1}, "
+             f"{ok + failed} steps, {1e3 * window_s / (ok + failed):.3f} ms per step; "
+             f"skipped steps and last loss per episode {per_episode}; "
+             f"set-up losses {seen['losses']}")
     peak_bytes = ctx.memory_peak()
     res = {"attempted": ok + failed, "failed": failed, "memory_peak_bytes": peak_bytes,
            "e2e": {"train_img_per_s": ok * B / window_s, "peak_mem_gib": peak_bytes / 2 ** 30,
                    "setup_s": setup_s}}
     facts = {}
-    if ctx.trace:
+    if ctx.trace:     # the traced steps and the counted one: the episode's first, anew
+        restore_s += snapshot.restore(side, ctx.sync)
+        restores += 1
         n = spec["trace_steps"]
-        tr = trace.profile(lambda k: side(pool[(s + k) % len(pool)],
-                                          step_generator(ctx.seed, s + k)), n)
-        s += n
-        count, _ = model_flops(side.model, lambda: side(pool[s % len(pool)],
-                                                        step_generator(ctx.seed, s)))
+        tr = trace.profile(lambda k: episode_step(K + k), n)
+        count, _ = model_flops(side.model, lambda: episode_step(K + n))
         peak = peaks(ctx.card_name()) if ctx.on_card() else None
         facts = {"trace": tr, "rate_img_per_s": ok * B / window_s, "peak": peak,
                  "flops_per_image": count.model / B}
@@ -204,10 +282,11 @@ def run(ctx) -> dict:
                                       "kernel_ms": tr.kernel_ms_per_call("roi_align_bwd")[0]}
         res["breakdown"] = {"device_ops": tr.top_ops(), "idle_gaps": tr.idle_gaps()}
         res["busy_s"], res["window_s"] = tr.busy_us / 1e6, tr.window_us / 1e6
+    ctx.note(f"{episodes} episodes, {restores} restores, {1e3 * restore_s:.3f} ms restoring")
     res["facts"] = facts
 
     # the check, once the program's state is freed
-    del side
+    del side, snapshot, episode_step
     ctx.free_memory()
     ctx.reference_precision()
     t_check = time.perf_counter()
