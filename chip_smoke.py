@@ -7,8 +7,9 @@
 Phases (each raises on failure):
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
      build the port's kernel library from omni3d_tpu_torch/csrc (both
-     multilevel ROIAlign kernels, forward and backward, and the two NMS
-     kernels), one nvcc per source started together;
+     multilevel ROIAlign kernels, forward and backward, the two NMS
+     kernels and the train-mode BatchNorm kernels), one nvcc per source
+     started together;
   2. the forward kernel vs its plain PyTorch version at the inference
      path's shapes (512 px pyramid, C = 256, B = 2, N = 1000 and 100 boxes),
      both routings, sampling_ratio 0 and 2, float32 and bfloat16, with times;
@@ -32,7 +33,9 @@ Phases (each raises on failure):
   5. training main path: full-width DLA34-FPN training steps at 512 px on
      synthetic batches (float32 TF32 off at batch 8, bfloat16 at batch 32):
      exactly one forward and one backward launch and one launch of each NMS
-     kernel per step, finite losses,
+     kernel per step, each step's 39 train-mode BN calls through the BN
+     kernels (39 forward and 37 backward launches, none through the plain
+     formula), finite losses,
      parameters and BN statistics moving, ms/step, img/s, peak memory; a
      NaN batch the stabilizer skips; one float32 step with the plain pooler
      (forward and backward) against the kernels' step, compared with
@@ -57,7 +60,8 @@ Phases (each raises on failure):
      with --resume to 32: finite losses, the checkpoint files and
      metrics.json, the resume at iteration 24, the priors buffers equal to
      compute_priors of the dataset, one forward and one backward launch per
-     step, one batch normalised on the card bit-equal to the numpy collate;
+     step, every train-mode BN call through the BN kernels, one batch
+     normalised on the card bit-equal to the numpy collate;
      the distinct shapes, ms/step (the first step at each shape apart), ms
      blocked on the loader, img/s, the device busy share (torch.profiler,
      steps 10-14) and the peak memory;
@@ -112,7 +116,9 @@ Phases (each raises on failure):
      (b) ResNet-18/50/101, DenseNet-121, MNASNet-1.0, ShuffleNetV2-x1.0 and
      the nine other DLA variants: one bf16 batch-8 inference (two forward
      launches, `check_outputs`) and one bf16 batch-8 training step (one
-     forward and one backward launch, finite losses) each, with build and
+     forward and one backward launch, finite losses) each; in every
+     training step of 9a and 9b each train-mode BN call goes through the BN
+     kernels and none through the plain formula; with build and
      warm-up seconds, ms and peak memory; inference models with the pose
      bias as in phase 3. It prints the `backbones:` JSON line;
  10. the demo: every JPEG fixture of tests/data/jpeg decoded bit-equal to
@@ -185,7 +191,19 @@ Phases (each raises on failure):
      checkpoint at batch 1 and 8. It prints, with no pass or fail, the
      warm-up and capture ms per shape, the pool's bytes and eager vs graphed
      ms per call and busy share in turns, with the card, and the `graphs:`
-     JSON line.
+     JSON line;
+ 14. the train-mode BatchNorm kernels (`csrc/batch_norm.cu`): their
+     registers and spills from phase 1's `ptxas -v` lines; then, in a
+     process of its own, `ops.batch_norm_cuda.forward` and `backward` at
+     each of DLA-34's six train-mode BN shapes (bf16, batch 32, 512 x 768:
+     16 channels at full size down to 512 at 1/32): equal to their mirror bit for bit, two
+     calls bit-equal, and within 2e-4 of the largest value (y and dx half
+     a bf16 ULP more) of the plain float32 formula in y, dx, the
+     parameters' gradients and the running update; the wrappers' ms (CUDA
+     events), the kernels' device ms (torch.profiler), the plain formula's
+     ms and the bytes bound (once, and in two passes) per shape and summed
+     over a step's 39 forward and 37 backward layers. It prints the
+     `batch_norm:` JSON line.
 Phases 7, 8c, 9a, 10 and 11 drive `inference_step` through the entry points
 (`do_test`, `tools.demo`, `tools.bench`): there the wrappers count four
 forward launches per graph captured (its eager warm-up and the capture) and
@@ -261,6 +279,10 @@ def cuda_ms(fn, iters=10, warmup=3):
 
 NMS_PER_INFERENCE = {"suppression_words": 2, "greedy_keep": 2}   # the RPN's and the per-class
 NMS_PER_STEP = {"suppression_words": 1, "greedy_keep": 1}        # the RPN's
+# a DLA-34 training step's train-mode BN: calls by path, then the kernels'
+# wrappers' launches (the two trees' unused projections run under no_grad,
+# so 37 of the 39 run a backward)
+BN_PER_DLA34_STEP = {"fused": 39, "plain": 0, "forward": 39, "backward": 37}
 # per inference call, by kernel (`benchtime.HAND_KERNELS`' names): the
 # wrappers' counts of an eager call or a capture, and the kernel records of
 # any call
@@ -283,7 +305,7 @@ def _reset_nms_counts():
     nms_cuda.greedy_keep.launches = 0
 
 
-def _nms_diff(before, after):
+def _count_diff(before, after):
     return {k: after[k] - before[k] for k in after}
 
 
@@ -589,7 +611,7 @@ def main_path(device, config="cubercnn_DLA34_FPN.yaml"):
                 ms.append((time.perf_counter() - t0) * 1e3)
                 assert multilevel_roi_align.launches - before == 2, \
                     multilevel_roi_align.launches - before
-                nms_per_call = _nms_diff(nms_before, _nms_counts())
+                nms_per_call = _count_diff(nms_before, _nms_counts())
                 assert nms_per_call == NMS_PER_INFERENCE, nms_per_call
             check_outputs(out, bs, kw["topk"], C)
             med = statistics.median(ms)
@@ -715,6 +737,7 @@ def train_path(device):
     multilevel_roi_align.launches = 0          # counts of the main path's run only
     multilevel_roi_align.bwd_launches = 0
     _reset_nms_counts()
+    bn_before = _bn_counts()
     for dtype_name, bs in TRAIN_SETTINGS:
         dtype = getattr(torch, dtype_name)
         model, opt, step, batch = synthetic_trainer(cfg, dtype, bs, device, img=IMG)
@@ -727,7 +750,7 @@ def train_path(device):
         ms, logs_all = [], []
         for i in range(WARMUP_STEPS + TIMED_STEPS):
             before = (multilevel_roi_align.launches, multilevel_roi_align.bwd_launches)
-            nms_before = _nms_counts()
+            nms_before, bn_step = _nms_counts(), _bn_counts()
             t0 = time.perf_counter()
             logs = step(batch, gen)
             torch.cuda.synchronize()
@@ -735,7 +758,9 @@ def train_path(device):
                 ms.append((time.perf_counter() - t0) * 1e3)
             after = (multilevel_roi_align.launches, multilevel_roi_align.bwd_launches)
             assert (after[0] - before[0], after[1] - before[1]) == (1, 1), (before, after)
-            assert _nms_diff(nms_before, _nms_counts()) == NMS_PER_STEP, _nms_counts()
+            assert _count_diff(nms_before, _nms_counts()) == NMS_PER_STEP, _nms_counts()
+            bn_step = _count_diff(bn_step, _bn_counts())
+            assert bn_step == BN_PER_DLA34_STEP, bn_step
             logs_all.append(logs)
         peak = torch.cuda.max_memory_allocated()
         for logs in logs_all:
@@ -769,6 +794,10 @@ def train_path(device):
     n_steps = len(TRAIN_SETTINGS) * (WARMUP_STEPS + TIMED_STEPS)
     assert launches == {"forward": n_steps, "backward": n_steps,
                         **{k: v * n_steps for k, v in NMS_PER_STEP.items()}}, launches
+    launches["bn"] = _count_diff(bn_before, _bn_counts())
+    print(f"  train-mode BN in the main path's run: {launches['bn']} ({n_steps} steps, each "
+          f"{BN_PER_DLA34_STEP})")
+    assert launches["bn"] == {k: v * n_steps for k, v in BN_PER_DLA34_STEP.items()}
 
     # a NaN pixel: the stabilizer skips the step, nothing moves
     model, opt, step, batch = kept["model"], kept["opt"], kept["step"], kept["batch"]
@@ -1070,6 +1099,7 @@ def entry_point_path(device, tmp):
     out_dir, prof_dir = os.path.join(tmp, "output"), os.path.join(tmp, "profile")
     multilevel_roi_align.launches = 0          # counts of the main path's run only
     multilevel_roi_align.bwd_launches = 0
+    bn_before = _bn_counts()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     first = train_net.main(train_argv(tmp, out_dir, STEPS, "--profile-dir", prof_dir))
@@ -1081,8 +1111,11 @@ def entry_point_path(device, tmp):
     launches = {"forward": multilevel_roi_align.launches,
                 "backward": multilevel_roi_align.bwd_launches}
     peak = torch.cuda.max_memory_allocated()
-    print(f"  kernel launches in the main path's run: {launches}")
+    bn = _count_diff(bn_before, _bn_counts())
+    print(f"  kernel launches in the main path's run: {launches}; train-mode BN {bn} over "
+          f"{ENTRY_RESUME_TO} iterations")
     assert launches == {"forward": ENTRY_RESUME_TO, "backward": ENTRY_RESUME_TO}, launches
+    assert bn["plain"] == 0 and bn["fused"] == bn["forward"] > 0 and bn["backward"] > 0, bn
     assert first.iterations == list(range(STEPS))
     assert resumed.start_iter == STEPS, resumed.start_iter
     assert resumed.iterations == list(range(STEPS, ENTRY_RESUME_TO))
@@ -1137,7 +1170,7 @@ def entry_point_path(device, tmp):
         device_busy_over_median_step=profile["device_busy_ms_per_step"] / res["ms_per_step"],
         wall_s=dict(first_run=t1 - t0, resumed_run=t2 - t1),
         skipped=[first.step.state["skipped"], resumed.step.state["skipped"]],
-        last_total_loss=logged[-1]["total_loss"], launches=launches)
+        last_total_loss=logged[-1]["total_loss"], launches=launches, bn=bn)
     print(f"  {len(res['shapes'])} distinct padded shapes: {res['shapes']}")
     print(f"  {res['ms_per_step']:.1f} ms/step (median of {res['steady_steps']}, first step at "
           "each shape apart: " + ", ".join(f"{tuple(f['shape'])} {f['ms']:.0f}"
@@ -1149,7 +1182,7 @@ def entry_point_path(device, tmp):
           f"{res['ms_blocked_on_loader_mean']:.1f}), {res['img_per_s']:.1f} img/s")
     print(f"  device busy {100 * profile['device_busy_share']:.0f}% over steps 10-14 under the "
           f"profiler ({profile['device_busy_ms_per_step']:.1f} of "
-          f"{profile['wall_ms_per_step']:.1f} ms per step; "
+          f"{profile['window_ms_per_step']:.1f} ms per step; "
           f"{100 * res['device_busy_over_median_step']:.0f}% of the unprofiled median step), "
           f"peak {peak / 2 ** 30:.2f} GiB; resumed at iteration {resumed.start_iter}, "
           f"{res['skipped']} steps skipped, last loss {res['last_total_loss']:.4f}")
@@ -1844,7 +1877,9 @@ def _train_steps(cfg, device, bs, warmup, timed, check_pooler=False):
     px: one forward and one backward launch per step, finite losses; with
     `check_pooler` the first warm-up step's pooler call is held against the
     plain versions right after it, and the peak memory is taken over the
-    steps after that one. Returns (row, launches)."""
+    steps after that one. Each step's train-mode BN calls all go through
+    the kernels (none through the plain formula); the row keeps the last
+    step's counts and the sums over the steps. Returns (row, launches)."""
     import torch
     from omni3d_tpu_torch.engine import train as train_mod
     from omni3d_tpu_torch.tools.synthetic import synthetic_trainer
@@ -1856,14 +1891,19 @@ def _train_steps(cfg, device, bs, warmup, timed, check_pooler=False):
     build_s = time.perf_counter() - t0
     losses = []
 
+    bn_steps = []
+
     def checked(batch, gen):
-        before = _launch_counts()
+        before, bn_before = _launch_counts(), _bn_counts()
         logs = step(batch, gen)
         after = _launch_counts()
         assert (after[0] - before[0], after[1] - before[1]) == (1, 1), (before, after)
+        bn = _count_diff(bn_before, _bn_counts())
+        assert bn["plain"] == 0 and bn["fused"] == bn["forward"] > 0 and bn["backward"] > 0, bn
         bad = {k: float(v) for k, v in logs.items() if not torch.isfinite(torch.as_tensor(v))}
         assert not bad, bad
         losses.append(float(logs["total_loss"]))
+        bn_steps.append(bn)
 
     gen = torch.Generator().manual_seed(0)
     pooler = None
@@ -1884,7 +1924,8 @@ def _train_steps(cfg, device, bs, warmup, timed, check_pooler=False):
     med = statistics.median(ms)
     row = dict(bs=bs, build_s=build_s, ms_per_step=med, ms_steps=ms, img_per_s=bs * 1e3 / med,
                peak_mem_gib=peak / 2 ** 30, losses=losses, skipped=step.state["skipped"],
-               remat_backbone=bool(cfg.TPU.REMAT_BACKBONE))
+               remat_backbone=bool(cfg.TPU.REMAT_BACKBONE), bn_per_step=bn_steps[-1],
+               bn_total={k: sum(b[k] for b in bn_steps) for k in bn_steps[-1]})
     if pooler is not None:
         row["first_pooler_call_vs_plain"] = pooler
     n = len(losses)
@@ -2015,7 +2056,7 @@ def other_backbone(device, label, config, opts):
           f"{peak / 2 ** 30:.2f} GiB; training bs "
           f"{BACKBONE_BS}: build {train['build_s']:.1f} s, steps {train['ms_steps'][0]:.1f} ms "
           f"(after one warm-up), loss {train['losses'][-1]:.4f}, peak "
-          f"{train['peak_mem_gib']:.2f} GiB")
+          f"{train['peak_mem_gib']:.2f} GiB; train-mode BN per step {train['bn_per_step']}")
     return row, {"forward": 4 + train_launches["forward"],
                  "backward": train_launches["backward"]}
 
@@ -2045,7 +2086,8 @@ def backbones_path(device, tmp, dla_inference, dla_training):
     _add(launches, remat_launches)
     print(f"  bf16 bs={BACKBONE_TRAIN_BS} with TPU.REMAT_BACKBONE: {remat['ms_per_step']:.1f} "
           f"ms/step, peak {remat['peak_mem_gib']:.2f} GiB (without: "
-          f"{train['peak_mem_gib']:.2f} GiB)")
+          f"{train['peak_mem_gib']:.2f} GiB); train-mode BN per step "
+          f"{remat['bn_per_step']} (without: {train['bn_per_step']})")
     entry, entry_launches = resnet_entry_and_eval(device, tmp)
     _add(launches, entry_launches)
     dla_bf16 = {r["bs"]: r["ms_per_batch"] for r in dla_inference if r["dtype"] == "bfloat16"}
@@ -2941,6 +2983,246 @@ def replay_records(replayed, kernel):
                 kernel_records=replayed["kernel_records_in_profiled_replays"][kernel])
 
 
+# phase 14: the train-mode BatchNorm kernels
+# DLA-34's train-mode BN layers at 512 x 768, batch 32: (N, C, H, W), the
+# layers of that shape a step runs forward and backward (the two trees'
+# unused projections, one at 128 and one at 256 channels, run under no_grad)
+BN_TRUNK = (((32, 16, 512, 768), 2, 2), ((32, 32, 256, 384), 1, 1), ((32, 64, 128, 192), 6, 6),
+            ((32, 128, 64, 96), 12, 11), ((32, 256, 32, 48), 12, 11), ((32, 512, 16, 24), 6, 6))
+# against the plain float32 formula: this share of the largest |value| (the
+# float32 formula's own one-pass variance error), and for y and dx half a
+# bf16 ULP of each value more (their one rounding)
+BN_REL = 2e-4
+BN_PROFILED_CALLS = 10
+BN_CHILD_TIMEOUT_S = 300
+
+
+def _bn_build_facts(build_log):
+    """The BN kernels' registers and spills from the build's `ptxas -v`
+    lines (phase 1's log): {mangled kernel name: text}."""
+    facts, current = {}, None
+    for line in build_log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1] if "'" in line else line
+            current = name if "omni3d_bn_" in name else None
+        elif current and ("registers" in line or "spill" in line):
+            facts[current] = (facts.get(current, "") + " " + line.split(":", 1)[-1].strip()).strip()
+    return facts
+
+
+def bn_plain(x, weight, bias, running_mean, running_var, dy):
+    """`BatchNorm2d`'s train-mode formula in float32 through autograd (the
+    module's plain path, written out so that it runs on the card): y, dx,
+    grad_weight, grad_bias, the running statistics after the update."""
+    import torch
+    xf = x.float().requires_grad_()
+    w, b = weight.clone().requires_grad_(), bias.clone().requires_grad_()
+    mean = xf.mean(dim=(0, 2, 3))
+    var = ((xf * xf).mean(dim=(0, 2, 3)) - mean * mean).clamp(min=0.0)
+    a = w * torch.rsqrt(var + 1e-5)
+    y = xf * a[:, None, None] + (b - mean * a)[:, None, None]
+    y.backward(dy.float())
+    with torch.no_grad():
+        running = (0.9 * running_mean + 0.1 * mean, 0.9 * running_var + 0.1 * var)
+    return y.detach(), xf.grad, w.grad, b.grad, running
+
+
+def _bn_err(got, want, bf16):
+    """max |got - want| over the largest |want|, and whether every element
+    is within BN_REL of that (plus half a bf16 ULP of its value where
+    `bf16`)."""
+    got, want = got.double(), want.double()
+    scale = float(want.abs().max())
+    tol = BN_REL * scale + (2.0 ** -8 * want.abs() if bf16 else 0.0)
+    return float((got - want).abs().max()) / scale, bool(((got - want).abs() <= tol).all())
+
+
+def _bn_kernel_ms(fn, calls=BN_PROFILED_CALLS, sessions=3):
+    """Device ms per call of the BN kernels' records (`omni3d_bn_` in the
+    name) of `fn()` under torch.profiler, mean of `calls` after one more
+    call. A session counts only if it holds `calls` records of each of three
+    kernels (reduce, merge, apply); one that does not is run again, up to
+    `sessions` in all, and then this raises. Returns (ms, sessions run)."""
+    import torch
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    fn()
+    torch.cuda.synchronize()
+    for session in range(1, sessions + 1):
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        recs = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+                and "omni3d_bn_" in e.name]
+        names = {e.name: sum(r.name == e.name for r in recs) for e in recs}
+        if sorted(names.values()) == [calls] * 3:
+            return sum(e.time_range.end - e.time_range.start for e in recs) / 1e3 / calls, session
+    raise AssertionError(f"{sessions} profiler sessions of {calls} calls: BN kernel records {names}")
+
+
+def _bn_counts():
+    """Train-mode `BatchNorm2d` calls by path and the BN wrappers' launches."""
+    from omni3d_tpu_torch.models import layers
+    from omni3d_tpu_torch.ops import batch_norm_cuda as bnc
+    return {**layers.bn_calls, "forward": bnc.forward.launches,
+            "backward": bnc.backward.launches}
+
+
+def bn_path(device, build_log, tmp):
+    """Phase 14: the BN kernels' build facts, then `bn_shapes` in a process
+    of its own (`torch.profiler` there has recorded nothing before: after
+    the other phases, a session in this process missed or mixed kernel
+    records)."""
+    from omni3d_tpu_torch.parallel.dist import run_spawned
+    t0 = time.perf_counter()
+    facts = _bn_build_facts(build_log)
+    for kernel, text in facts.items():
+        print(f"  {kernel[:70]}: {text}")
+    if not facts:
+        raise AssertionError("phase 1's log lacks the BN kernels' ptxas lines")
+    path = os.path.join(tmp, "batch_norm.json")
+    run_spawned(_bn_child, [(str(device), path)], BN_CHILD_TIMEOUT_S)
+    with open(path) as f:
+        res = json.load(f)
+    print(f"  phase 14 took {time.perf_counter() - t0:.1f} s")
+    return dict(build=facts, **res)
+
+
+def _bn_child(device, result_path):
+    torch = _child_setup()
+    with open(result_path, "w") as f:
+        json.dump(bn_shapes(torch.device(device)), f)
+
+
+def bn_shapes(device):
+    """`batch_norm_cuda.forward` and `backward` at each of DLA-34's
+    train-mode BN shapes (bf16, batch 32, 512 x 768) against their mirror
+    bit for bit and the plain float32 formula (y, dx, the parameters'
+    gradients, the running update), two calls bit-equal, with the wrappers'
+    ms (CUDA events), the kernels' device ms (torch.profiler), the plain
+    formula's ms and the bytes bounds; the step's totals over its 39
+    forward and 37 backward layers."""
+    import torch
+    from omni3d_tpu_torch.ops import batch_norm_cuda as bnc
+    from omni3d_tpu_torch.utils.benchtime import bound
+
+    before = _bn_counts()
+    rows, calls = [], 0
+    profiled = {"forward": 0, "backward": 0}
+    for (n, c, h, w), fwd_layers, bwd_layers in BN_TRUNK:
+        torch.cuda.empty_cache()
+        g = torch.Generator(device=device).manual_seed(c)
+        x = (torch.randn(n, h, w, c, generator=g, device=device) * 0.5 + 3).bfloat16()
+        x = x.permute(0, 3, 1, 2)
+        dy = torch.randn(n, h, w, c, generator=g, device=device).bfloat16().permute(0, 3, 1, 2)
+        weight = torch.rand(c, generator=g, device=device) + 0.5
+        bias = torch.randn(c, generator=g, device=device)
+        stats0 = (torch.randn(c, generator=g, device=device),
+                  torch.rand(c, generator=g, device=device) + 0.5)
+        running = [s.clone() for s in stats0]
+        y, stats = bnc.forward(x, weight, bias, *running, True)
+        dx, gw, gb = bnc.backward(x, dy, stats)
+        mirror_running = [s.clone() for s in stats0]
+        y_m, stats_m = bnc.forward_mirror(x, weight, bias, *mirror_running, True)
+        want = (y_m, stats_m, *mirror_running, *bnc.backward_mirror(x, dy, stats_m))
+        if not all(torch.equal(a, b) for a, b in zip((y, stats, *running, dx, gw, gb), want)):
+            raise AssertionError(f"BN {(n, c, h, w)}: the kernels differ from their mirror")
+        del y_m, stats_m, want
+        again = bnc.forward(x, weight, bias, *[s.clone() for s in stats0], True)
+        again = (*again, *bnc.backward(x, dy, again[1]))
+        if not all(torch.equal(a, b) for a, b in zip((y, stats, dx, gw, gb), again)):
+            raise AssertionError(f"BN {(n, c, h, w)}: two calls differ")
+        del again
+        want = bn_plain(x, weight, bias, *stats0, dy)
+        errs = {}
+        for name, got, ref, bf16 in (("y", y, want[0], True), ("dx", dx, want[1], True),
+                                     ("grad_weight", gw, want[2], False),
+                                     ("grad_bias", gb, want[3], False),
+                                     ("running_mean", running[0], want[4][0], False),
+                                     ("running_var", running[1], want[4][1], False)):
+            errs[name], ok = _bn_err(got, ref, bf16)
+            if not ok:
+                raise AssertionError(f"BN {(n, c, h, w)} {name}: {errs[name]:.2e} of the largest "
+                                     f"against the plain float32 formula (tol {BN_REL})")
+        del want, y, dx
+        fwd = lambda: bnc.forward(x, weight, bias, *running, False)
+        bwd = lambda: bnc.backward(x, dy, stats)
+        fwd_dev, fwd_sessions = _bn_kernel_ms(fwd)
+        bwd_dev, bwd_sessions = _bn_kernel_ms(bwd)
+        fwd_ms, bwd_ms = cuda_ms(fwd), cuda_ms(bwd)          # 3 warm-up and 10 timed calls
+        calls += 2 + 13                # and the profiled calls: one, then 10 a session
+        profiled["forward"] += 1 + fwd_sessions * BN_PROFILED_CALLS
+        profiled["backward"] += 1 + bwd_sessions * BN_PROFILED_CALLS
+        act = n * h * w * c * 2                  # bytes of one bf16 activation
+        row = dict(shape=[n, c, h, w], layers_forward=fwd_layers, layers_backward=bwd_layers,
+                   max_rel_err_vs_plain_f32=errs, fwd_ms=fwd_ms, bwd_ms=bwd_ms,
+                   fwd_device_ms=fwd_dev, bwd_device_ms=bwd_dev,
+                   profiler_sessions=[fwd_sessions, bwd_sessions],
+                   plain_ms=cuda_ms(lambda: bn_plain(x, weight, bias, *stats0, dy), iters=3,
+                                    warmup=1),
+                   # once: x read and y written; x and dy read and dx written
+                   fwd_bound_ms=bound(2 * act, 0)[0], bwd_bound_ms=bound(3 * act, 0)[0],
+                   # two passes: x read twice forward; x and dy read twice backward
+                   fwd_two_pass_ms=bound(3 * act, 0)[0], bwd_two_pass_ms=bound(5 * act, 0)[0])
+        rows.append(row)
+        print(f"  bf16 {n}x{c}x{h}x{w}: == mirror, two calls bit-equal; vs plain f32 "
+              + ", ".join(f"{k} {v:.1e}" for k, v in errs.items())
+              + f"; device fwd {fwd_dev * 1e3:.1f} / bwd {bwd_dev * 1e3:.1f} us (bound "
+              f"{row['fwd_bound_ms'] * 1e3:.1f} / {row['bwd_bound_ms'] * 1e3:.1f}, two passes "
+              f"{row['fwd_two_pass_ms'] * 1e3:.1f} / {row['bwd_two_pass_ms'] * 1e3:.1f}); "
+              f"wrappers {fwd_ms:.3f} / {bwd_ms:.3f} ms; plain fwd + bwd {row['plain_ms']:.3f} ms; "
+              f"profiler sessions {fwd_sessions} / {bwd_sessions}")
+        del x, dy, stats
+    launches = _count_diff(before, _bn_counts())
+    if launches != {"fused": 0, "plain": 0, "forward": calls + profiled["forward"],
+                    "backward": calls + profiled["backward"]}:
+        raise AssertionError(f"phase 14: counts {launches}, {calls} calls each way")
+    step = {k: sum(r[k] * r["layers_forward"] for r in rows)
+            for k in ("fwd_ms", "fwd_device_ms", "fwd_bound_ms", "fwd_two_pass_ms")}
+    step.update({k: sum(r[k] * r["layers_backward"] for r in rows)
+                 for k in ("bwd_ms", "bwd_device_ms", "bwd_bound_ms", "bwd_two_pass_ms")})
+    step.update(layers_forward=sum(r["layers_forward"] for r in rows),
+                layers_backward=sum(r["layers_backward"] for r in rows),
+                activations=sum(math.prod(r["shape"]) * r["layers_forward"] for r in rows),
+                plain_ms=sum(r["plain_ms"] * r["layers_forward"] for r in rows))
+    print(f"  a DLA-34 step ({step['layers_forward']} forward, {step['layers_backward']} "
+          f"backward, {step['activations'] / 1e9:.4f} G activations): device "
+          f"{step['fwd_device_ms']:.3f} + {step['bwd_device_ms']:.3f} ms, bound once "
+          f"{step['fwd_bound_ms'] + step['bwd_bound_ms']:.3f} ms, two passes "
+          f"{step['fwd_two_pass_ms'] + step['bwd_two_pass_ms']:.3f} ms; the plain formula "
+          f"{step['plain_ms']:.2f} ms (forward and backward of all {step['layers_forward']})")
+    print(f"  wrapper launches {launches}", flush=True)
+    return dict(shapes=rows, step=step, launches=launches)
+
+
+def bn_kernel_entry(way, bn, launches_by_path):
+    """The kernels line's entry of the BN kernels one way ("forward": reduce,
+    merge, apply; "backward": reduce, merge, apply): launches through the
+    wrapper in phases 5, 6, 9 and 14, the largest error against the plain
+    float32 formula and phase 14's step totals (device ms of the kernel
+    records, the bytes bound once and in two passes)."""
+    short = {"forward": "fwd", "backward": "bwd"}[way]
+    names = ("y",) if way == "forward" else ("dx", "grad_weight", "grad_bias")
+    step = bn["step"]
+    return {
+        "name": f"batch_norm_train_{way}", "route": "cuda",
+        "source": "omni3d_tpu_torch/csrc/batch_norm.cu",
+        "replaces": "omni3d_tpu/models/layers.py:195 (_TrainPackedBN, left to XLA's fusion)",
+        "launches": sum(launches_by_path.values()), "launches_by_path": launches_by_path,
+        "max_rel_err_vs_plain_f32": max(r["max_rel_err_vs_plain_f32"][k] for r in bn["shapes"]
+                                        for k in names),
+        "ms": step[f"{short}_device_ms"], "wrapper_ms": step[f"{short}_ms"],
+        "plain_ms": None, "plain_fwd_bwd_ms": step["plain_ms"],
+        "bound_ms": step[f"{short}_bound_ms"], "bound_by": "bytes",
+        "two_pass_bound_ms": step[f"{short}_two_pass_ms"], "library_ms": None,
+        "timed_case": f"a bf16 DLA-34 step's {step[f'layers_{way}']} train-mode BN layers at "
+                      "512 x 768, batch 32 (kernel records, torch.profiler, mean of "
+                      f"{BN_PROFILED_CALLS} per shape)",
+        "bit_reproducible": True,
+        "build": {k: v for k, v in bn["build"].items()},
+    }
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2959,7 +3241,7 @@ def main():
           f"{torch.cuda.get_device_name(0)}; TF32 off (cuDNN and matmul)")
 
     from omni3d_tpu_torch.utils import cuda_build
-    print("[1/13] build")
+    print("[1/14] build")
     path, secs, build_log = cuda_build.build()
     print(f"  {os.path.relpath(path, ROOT)} built in {secs:.1f} s")
     for line in build_log.splitlines():
@@ -2970,49 +3252,53 @@ def main():
         gate_probe(device, int(sys.argv[2]))
         return
 
-    print("[2/13] forward kernel vs plain PyTorch version")
+    print("[2/14] forward kernel vs plain PyTorch version")
     main_case, worst = kernel_vs_plain(device)
 
-    print("[3/13] inference main path: DLA34-FPN inference at 512 px")
+    print("[3/14] inference main path: DLA34-FPN inference at 512 px")
     timings, launches, models, inference_check = main_path(device)
 
-    print("[4/13] backward kernel vs plain PyTorch version")
+    print("[4/14] backward kernel vs plain PyTorch version")
     worst_bwd = bwd_vs_plain(device)
     at_train = time_kernels_at_train_shape(device)
 
-    print("[5/13] training main path: DLA34-FPN training steps at 512 px")
+    print("[5/14] training main path: DLA34-FPN training steps at 512 px")
     train_rows, train_launches, plain_cmp = train_path(device)
 
     with tempfile.TemporaryDirectory() as tmp:
-        print("[6/13] training entry point: tools.train_net on a synthetic Omni3D-format dataset")
+        print("[6/14] training entry point: tools.train_net on a synthetic Omni3D-format dataset")
         entry, entry_launches, weights = entry_point_path(device, tmp)
 
-        print("[7/13] evaluation: tools.train_net --eval-only on synthetic test splits")
+        print("[7/14] evaluation: tools.train_net --eval-only on synthetic test splits")
         evaluation, eval_launches = evaluation_path(device, tmp, weights)
 
-        print("[8/13] data parallelism: DDP over NCCL at world size 1, two ranks on the card "
+        print("[8/14] data parallelism: DDP over NCCL at world size 1, two ranks on the card "
               "over gloo, --eval-only at world size 2")
         distributed, ddp_launches = distributed_path(device, tmp, weights)
 
-        print("[9/13] other backbones at full width: ResNet34-FPN as phases 3 and 5-7 drive "
+        print("[9/14] other backbones at full width: ResNet34-FPN as phases 3 and 5-7 drive "
               "DLA-34, then every other builder and DLA variant")
         backbones, bb_launches = backbones_path(device, tmp, timings, train_rows)
 
-        print("[10/13] the demo: JPEG fixtures, tools.demo at full width, render_depth_map on "
+        print("[10/14] the demo: JPEG fixtures, tools.demo at full width, render_depth_map on "
               "the card, train_net with VIS_PERIOD and TEST.EVAL_PERIOD")
         demo, demo_launches = demo_path(device, tmp, weights)
 
-        print("[11/13] the measurement tools: tools.bench at bs 1 / 8 / 32, tools.bench_train "
+        print("[11/14] the measurement tools: tools.bench at bs 1 / 8 / 32, tools.bench_train "
               "at bf16 bs 32, tools.profile_stages, tools.profile_backbone")
         measurement, tool_launches, tools_pooler_err = measurement_path(device)
 
-        print("[12/13] the NMS kernels vs plain PyTorch version; host syncs of the proposal "
+        print("[12/14] the NMS kernels vs plain PyTorch version; host syncs of the proposal "
               "and detection NMS")
         nms = nms_path(device, build_log)
 
-        print("[13/13] inference_step: one CUDA graph per padded shape at full width, f32 and "
+        print("[13/14] inference_step: one CUDA graph per padded shape at full width, f32 and "
               "bf16 at bs 1 / 8 / 32, against eager inference")
         graphs, graph_launches, graph_replayed = graph_path(device, tmp, weights, models, card)
+
+        print("[14/14] the train-mode BatchNorm kernels vs the plain formula at DLA-34's trunk "
+              "shapes, bf16, bs 32, 512 x 768")
+        bn = bn_path(device, build_log, tmp)
 
     bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "omni3d_tpu")]
     assert not bad, bad
@@ -3026,6 +3312,7 @@ def main():
     print("measurement: " + json.dumps(measurement))
     print("nms: " + json.dumps(nms))
     print("graphs: " + json.dumps(graphs))
+    print("batch_norm: " + json.dumps(bn))
     # phase 9's kernel-vs-plain checks on ResNet-34's own pooler inputs (its
     # random-weight maps are larger than DLA-34's, so are the absolute errors)
     bb_pooler = backbones["resnet34"]["training"]["first_pooler_call_vs_plain"]
@@ -3101,7 +3388,14 @@ def main():
         **{k: n[kernel] for k, n in tool_launches.items()},
         "graphs": graph_launches[kernel]}, nms["build"]),
         graph_replays=replay_records(graph_replayed, kernel))
-        for kernel in ("suppression_words", "greedy_keep")]}))
+        for kernel in ("suppression_words", "greedy_keep")]
+        + [bn_kernel_entry(way, bn, {
+            "training": train_launches["bn"][way],
+            "training_entry_point": entry["bn"][way],
+            "backbones": sum(r["bn_total"][way] for r in (
+                backbones["resnet34"]["training"], backbones["resnet34"]["training_remat_backbone"],
+                *(o["training"] for o in backbones["others"]))),
+            "phase_14": bn["launches"][way]}) for way in ("forward", "backward")]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

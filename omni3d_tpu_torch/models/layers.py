@@ -18,8 +18,16 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..ops import batch_norm_cuda
+
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.1   # running-stat update weight of the batch statistics
+
+# Train-mode `BatchNorm2d` calls by the path they took: "fused", the kernels
+# of `ops.batch_norm_cuda` (every CUDA input); "plain", the PyTorch formula
+# (every CPU input), so that a step on the card that reads 0 here ran no BN
+# layer off the kernels.
+bn_calls = {"fused": 0, "plain": 0}
 
 
 class Conv2d(nn.Conv2d):
@@ -72,7 +80,15 @@ class BatchNorm2d(nn.Module):
 
     `update_stats` False (see `running_stats_frozen`) keeps the running
     statistics where they are in train mode, for a forward that recomputes
-    one already counted."""
+    one already counted.
+
+    In train mode a CUDA input goes through the kernels of
+    `ops.batch_norm_cuda`, which compute the same formula with the affine
+    formed in float32 and one rounding to x's dtype, update the running
+    statistics in place, and keep only x (made channels-last contiguous if
+    it is not) and (4, C) statistics for the backward; they take bf16 and
+    float32 and raise on any other dtype. A CPU input takes the plain
+    formula. `bn_calls` counts the two."""
 
     def __init__(self, num_features: int):
         super().__init__()
@@ -85,6 +101,12 @@ class BatchNorm2d(nn.Module):
     def forward(self, x):
         if not self.training:
             return _bn_affine(x, self.weight, self.bias, self.running_mean, self.running_var)
+        if x.is_cuda:
+            y = batch_norm_cuda.TrainBatchNorm.apply(x, self.weight, self.bias, self.running_mean,
+                                                     self.running_var, self.update_stats)
+            bn_calls["fused"] += 1
+            return y
+        bn_calls["plain"] += 1
         xf = x.float()
         mean = xf.mean(dim=(0, 2, 3))
         var = ((xf * xf).mean(dim=(0, 2, 3)) - mean * mean).clamp(min=0.0)

@@ -1,7 +1,8 @@
 """Build the port's CUDA kernels into one shared library with nvcc.
 
 Every `.cu` source under `csrc/` (`SOURCES`: the two ROIAlign kernels,
-the NMS kernels and the stage markers of `utils/trace.py`) is compiled for sm_90a, one nvcc per source started
+the NMS kernels, the train-mode BatchNorm kernels and the stage markers of
+`utils/trace.py`) is compiled for sm_90a, one nvcc per source started
 together, then linked into one library with a plain C interface that
 `library()` loads with ctypes. The library is named by a hash of the
 sources, the headers and the flags, under the package's `_build/`, so an
@@ -24,7 +25,7 @@ import time
 _PKG = pathlib.Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 SOURCES = (CSRC / "roi_align_fwd.cu", CSRC / "roi_align_bwd.cu", CSRC / "nms.cu",
-           CSRC / "stage_mark.cu")
+           CSRC / "batch_norm.cu", CSRC / "stage_mark.cu")
 HEADERS = (CSRC / "roi_align_common.cuh",)
 BUILD_DIR = _PKG / "_build"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -3,7 +3,7 @@ versions, the training entry point, a one-rank NCCL step, the
 evaluation's IoU3D, the demo, the cuboid rasterizer, the inference bench,
 the stage chain, the NMS kernels, `inference_step`'s CUDA graphs and the
 stages that `utils.trace` times inside them and inside the training step,
-on the card.
+and the train-mode BatchNorm kernels, on the card.
 
 These tests need a CUDA device and skip without one. They import no JAX, so
 they run on a machine without it; there, skip tests/conftest.py (it imports
@@ -356,9 +356,12 @@ def test_backbone_family_runs_on_the_card(device, opts):
     features on the card (TF32 off) within 1e-4 of the CPU's largest value
     per map; bf16 inference with two forward launches and finite outputs;
     one bf16 training step with one forward and one backward launch and a
-    finite loss."""
+    finite loss, each of its train-mode BN calls through the kernels and
+    none through the plain formula."""
     from omni3d_tpu_torch.config import get_default_cfg
+    from omni3d_tpu_torch.models import layers as tl
     from omni3d_tpu_torch.models import rcnn3d
+    from omni3d_tpu_torch.ops import batch_norm_cuda as bnc
     from omni3d_tpu_torch.tools.synthetic import synthetic_trainer, train_batch
 
     cfg = get_default_cfg()
@@ -388,11 +391,15 @@ def test_backbone_family_runs_on_the_card(device, opts):
 
     model, _, step, batch = synthetic_trainer(cfg, torch.bfloat16, 2, device, img=256)
     before = (multilevel_roi_align.launches, multilevel_roi_align.bwd_launches)
+    calls, bn_launches = dict(tl.bn_calls), bnc.forward.launches
     logs = step(batch, torch.Generator().manual_seed(0))
     torch.cuda.synchronize()
     assert (multilevel_roi_align.launches - before[0],
             multilevel_roi_align.bwd_launches - before[1]) == (1, 1)
     assert logs["finite"] == 1.0 and bool(torch.isfinite(torch.as_tensor(logs["total_loss"])))
+    fused = tl.bn_calls["fused"] - calls["fused"]
+    assert fused > 0 and fused == bnc.forward.launches - bn_launches
+    assert tl.bn_calls["plain"] == calls["plain"]
 
 
 @pytest.mark.cuda
@@ -957,3 +964,196 @@ def test_training_step_stage_readings_need_no_synchronise(device, monkeypatch):
              and n not in ("step.forward", "step.backward", "step.optimizer")]
     for k in range(3):
         assert sum(stages[n][k] for n in inner) <= stages["step.forward"][k] * (1 + 1e-6)
+
+
+# ------------------------------------------- the train-mode BatchNorm kernels
+
+BN_SHAPES = [(32, 16, 512, 768), (32, 32, 256, 384), (32, 64, 128, 192), (32, 128, 64, 96),
+             (32, 256, 32, 48), (32, 512, 16, 24),        # DLA-34's trunk at 512 x 768, bs 32
+             (4, 3, 37, 53), (4, 20, 33, 17), (2, 48, 19, 23), (3, 7, 11, 13)]   # ragged C
+
+
+def _bn_case(device, shape, dtype, seed=0):
+    """A channels-last input off zero, affine parameters, running
+    statistics and an output gradient, drawn on the card."""
+    n, c, h, w = shape
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = (torch.randn(n, h, w, c, generator=g, device=device) * 0.5 + 3).to(dtype)
+    params = {"weight": torch.rand(c, generator=g, device=device) + 0.5,
+              "bias": torch.randn(c, generator=g, device=device),
+              "running_mean": torch.randn(c, generator=g, device=device),
+              "running_var": torch.rand(c, generator=g, device=device) + 0.5}
+    dy = torch.randn(n, h, w, c, generator=g, device=device).to(dtype)
+    return x.permute(0, 3, 1, 2), params, dy.permute(0, 3, 1, 2)
+
+
+def _bn_plain(x, params, dy, dtype, update=True):
+    """`BatchNorm2d`'s train-mode formula in `dtype` through autograd (the
+    batch statistics one pass, as the module's plain path takes them): y,
+    dx, grad_weight, grad_bias and the running statistics."""
+    xr = x.to(dtype).requires_grad_()
+    weight = params["weight"].to(dtype).requires_grad_()
+    bias = params["bias"].to(dtype).requires_grad_()
+    mean = xr.mean(dim=(0, 2, 3))
+    var = ((xr * xr).mean(dim=(0, 2, 3)) - mean * mean).clamp(min=0.0)
+    a = weight * torch.rsqrt(var + 1e-5)
+    y = xr * a[:, None, None] + (bias - mean * a)[:, None, None]
+    y.backward(dy.to(dtype))
+    running = [params[k].to(dtype) for k in ("running_mean", "running_var")]
+    if update:
+        running = [0.9 * v + 0.1 * stat.detach() for v, stat in zip(running, (mean, var))]
+    return y.detach(), xr.grad, weight.grad, bias.grad, running
+
+
+def _bn_close(got, want, rel, bf16):
+    got, want = got.double(), want.double()
+    scale = float(want.abs().max())
+    tol = rel * scale + (2.0 ** -8 * want.abs() if bf16 else 0.0)
+    assert bool(((got - want).abs() <= tol).all()), float((got - want).abs().max()) / scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", BN_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_batch_norm_kernels_match_mirror_and_plain(device, shape, dtype):
+    """Forward (y, stats, the running update) and backward (dx, the
+    parameters' gradients) equal the plain-PyTorch mirror of their
+    arithmetic bit for bit, and the plain formula: within a few float32
+    roundings of it in float64, and within the float32 formula's own
+    one-pass variance error (2e-4 of the largest) of it in float32; bf16
+    within half a bf16 ULP more, the one rounding of y and dx."""
+    from omni3d_tpu_torch.ops import batch_norm_cuda as bnc
+    x, params, dy = _bn_case(device, shape, dtype)
+    w, b = params["weight"], params["bias"]
+    rk = [params[k].clone() for k in ("running_mean", "running_var")]
+    rm = [params[k].clone() for k in ("running_mean", "running_var")]
+    y, stats = bnc.forward(x, w, b, *rk, True)
+    dx, gw, gb = bnc.backward(x, dy, stats)
+    y_m, stats_m = bnc.forward_mirror(x, w, b, *rm, True)
+    dx_m, gw_m, gb_m = bnc.backward_mirror(x, dy, stats_m)
+    torch.cuda.synchronize()
+    assert y.dtype == dx.dtype == dtype
+    assert y.is_contiguous(memory_format=torch.channels_last)
+    assert dx.is_contiguous(memory_format=torch.channels_last)
+    for got, want in zip((y, stats, *rk, dx, gw, gb), (y_m, stats_m, *rm, dx_m, gw_m, gb_m)):
+        assert torch.equal(got, want)
+    bf16 = dtype == torch.bfloat16
+    eps = 2.0 ** -23
+    for ref_dtype, rel in ((torch.float64, 32 * eps), (torch.float32, 2e-4)):
+        want_y, want_dx, want_gw, want_gb, want_running = _bn_plain(x, params, dy, ref_dtype)
+        _bn_close(y, want_y, rel, bf16)
+        _bn_close(dx, want_dx, 2 * rel, bf16)
+        _bn_close(gw, want_gw, rel, False)
+        _bn_close(gb, want_gb, rel, False)
+        _bn_close(rk[0], want_running[0], rel, False)
+        _bn_close(rk[1], want_running[1], rel, False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(32, 16, 512, 768), (32, 512, 16, 24), (4, 20, 33, 17)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_batch_norm_kernels_are_bit_reproducible(device, shape):
+    """Two calls give the same bits: no float atomics, a fixed order."""
+    from omni3d_tpu_torch.ops import batch_norm_cuda as bnc
+    x, params, dy = _bn_case(device, shape, torch.bfloat16, seed=1)
+    runs = []
+    for _ in range(2):
+        y, stats = bnc.forward(x, *params.values(), False)
+        runs.append((y, stats, *bnc.backward(x, dy, stats)))
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+@pytest.mark.cuda
+def test_batch_norm_module_updates_running_stats_in_place(device):
+    """Through `BatchNorm2d`: the running statistics are updated in the
+    module's own tensors (the stabilizer's clones and the training
+    snapshot hold them), as the mirror updates them; under
+    `running_stats_frozen` they stay; each call counts `fused`; the
+    gradients reach the parameters."""
+    from omni3d_tpu_torch.models import layers as tl
+    from omni3d_tpu_torch.ops import batch_norm_cuda as bnc
+    x, params, dy = _bn_case(device, (8, 64, 40, 56), torch.bfloat16, seed=2)
+    bn = tl.BatchNorm2d(64).to(device).train()
+    bn.load_state_dict(params)
+    held = (bn.running_mean, bn.running_var)
+    ptrs = [t.data_ptr() for t in held]
+    want = [params[k].clone() for k in ("running_mean", "running_var")]
+    _, stats = bnc.forward_mirror(x, params["weight"], params["bias"], *want, True)
+    _, gw, gb = bnc.backward_mirror(x, dy, stats)
+    calls, launches = dict(tl.bn_calls), (bnc.forward.launches, bnc.backward.launches)
+    bn(x.requires_grad_()).backward(dy)
+    torch.cuda.synchronize()
+    assert (bn.running_mean, bn.running_var) == held and [t.data_ptr() for t in held] == ptrs
+    assert torch.equal(bn.running_mean, want[0]) and torch.equal(bn.running_var, want[1])
+    assert torch.equal(bn.weight.grad, gw) and torch.equal(bn.bias.grad, gb)
+    with tl.running_stats_frozen(bn):
+        bn(x)
+    torch.cuda.synchronize()
+    assert torch.equal(bn.running_mean, want[0]) and torch.equal(bn.running_var, want[1])
+    assert tl.bn_calls == {"fused": calls["fused"] + 2, "plain": calls["plain"]}
+    assert (bnc.forward.launches, bnc.backward.launches) == (launches[0] + 2, launches[1] + 1)
+
+
+@pytest.mark.cuda
+def test_batch_norm_cuda_inputs_of_any_layout_take_the_kernels(device):
+    """On the card every train-mode input goes through the kernels: one
+    that is not channels-last is made so first (the same y, gradients and
+    running statistics as its channels-last twin) and counts `fused`; a
+    float16 input raises; a CPU input takes the plain formula and counts
+    `plain`; the wrappers refuse all three; a gradient that is not
+    channels-last is made so."""
+    from omni3d_tpu_torch.models import layers as tl
+    from omni3d_tpu_torch.ops import batch_norm_cuda as bnc
+    x, params, dy = _bn_case(device, (2, 16, 9, 13), torch.float32, seed=3)
+    outs = []
+    calls = dict(tl.bn_calls)
+    for xi in (x, x.contiguous()):
+        bn = tl.BatchNorm2d(16).to(device).train()
+        bn.load_state_dict(params)
+        xi = xi.detach().requires_grad_()
+        y = bn(xi)
+        y.backward(dy)
+        outs.append((y, xi.grad, bn.weight.grad, bn.bias.grad, bn.running_mean,
+                     bn.running_var))
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(*outs))
+    assert tl.bn_calls == {"fused": calls["fused"] + 2, "plain": calls["plain"]}
+    with pytest.raises(ValueError):
+        bn(x.half())
+    bn.cpu()(x.cpu())
+    assert tl.bn_calls == {"fused": calls["fused"] + 2, "plain": calls["plain"] + 1}
+    for xo in (x.contiguous(), x.half(), x.cpu()):
+        with pytest.raises(ValueError):
+            bnc.forward(xo, *(v.to(xo.device) for v in params.values()), False)
+    _, stats = bnc.forward(x, *params.values(), False)
+    got = bnc.backward(x, dy.contiguous(), stats)
+    want = bnc.backward(x, dy, stats)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.cuda
+def test_dla34_training_step_runs_39_fused_batch_norms(device):
+    """One bf16 DLA-34 training step: each of the trunk's 39 train-mode BN
+    layers goes through the kernels forward, none through the plain
+    formula; 37 backward (the two trees' unused projections run under
+    no_grad, so that only their running statistics move)."""
+    import pathlib
+
+    from omni3d_tpu_torch.config import get_default_cfg
+    from omni3d_tpu_torch.models import layers as tl
+    from omni3d_tpu_torch.ops import batch_norm_cuda as bnc
+    from omni3d_tpu_torch.tools.synthetic import synthetic_trainer
+
+    cfg = get_default_cfg()
+    cfg.merge_from_file(str(pathlib.Path(__file__).resolve().parents[1] / "configs"
+                            / "cubercnn_DLA34_FPN.yaml"))
+    cfg.merge_from_list(list(NARROW))
+    _, _, step, batch = synthetic_trainer(cfg, torch.bfloat16, 2, device, img=256)
+    calls, launches = dict(tl.bn_calls), (bnc.forward.launches, bnc.backward.launches)
+    logs = step(batch, torch.Generator().manual_seed(0))
+    torch.cuda.synchronize()
+    assert logs["finite"] == 1.0
+    assert tl.bn_calls == {"fused": calls["fused"] + 39, "plain": calls["plain"]}
+    assert (bnc.forward.launches, bnc.backward.launches) == (launches[0] + 39, launches[1] + 37)
