@@ -3,9 +3,11 @@
 Everything a cell needs is found by name: the cell's entry in the root
 `BENCHMARK.json` names its configuration and its traffic kind; the cell's
 parameters are `benchmark/workloads/<cell>.json`, the configuration's
-sizes the configuration's `file`, the generator `benchmark/traffic/<kind>.py`
-and each per-layer metric's reader `benchmark/metrics/<metric>.py`. A new
-cell, configuration, traffic mix or metric is new files and entries.
+sizes the configuration's `file`, the generator `benchmark/traffic/<kind>.py`,
+each per-layer metric's reader `benchmark/metrics/<metric>.py` and the
+reference's trunk `benchmark/reference/trunks/<MODEL.BACKBONE.NAME>.py`. A
+new cell, configuration, trunk family, traffic mix or metric is new files
+and entries.
 
 A run: set-up (process start to the first timed call: imports, the CUDA
 context, the weights drawn on the card, the pools, the warm-up calls that

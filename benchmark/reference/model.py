@@ -3,7 +3,8 @@ step in plain PyTorch, with no kernel, graph or cache of the program.
 
 Frozen from omni3d_tpu_torch/models/rcnn3d.py and engine/train.py (commit
 5a24e3a): the same parameter names, so one state dict loads into both;
-DLA and ResNet trunks only; the pooler is the plain ROIAlign and NMS the
+each trunk family is a file of its own, `trunks/<MODEL.BACKBONE.NAME>.py`,
+found by the builder's name; the pooler is the plain ROIAlign and NMS the
 plain fixpoint. Beside `inference` it has the two stages that judge the
 program's outputs from the program's own choices (`box_stage`,
 `cube_stage`), and `train_step`, the single-device step of
@@ -16,17 +17,18 @@ float8_e4m3fn, the lower-precision control.
 """
 from __future__ import annotations
 
+import importlib
+import os
+
 import torch
 import torch.nn as nn
 import torch.utils.checkpoint
 
 from . import anchors as anchor_lib
-from .dla import DLA
 from .fpn import FPN
 from .heads import (BoxHead, CubeHead, FastRCNNPredictor, decode_cube,
                     fast_rcnn_inference, scale_proposals)
 from .layers import BatchNorm2d, Conv2d, Linear
-from .resnet import ResNet
 from .roi_align import multilevel_roi_align
 from .roi_training import cube_losses, fast_rcnn_losses, label_and_sample_proposals
 from .rpn import RPNHead, label_and_sample_anchors, rpn_losses, select_proposals
@@ -51,12 +53,14 @@ class Cfg(dict):
 
 
 def build_bottom_up(cfg, dtype):
+    """The FPN's bottom-up network: `build(cfg, dtype)` of
+    `trunks/<MODEL.BACKBONE.NAME>.py`, an nn.Module whose `out_channels`
+    maps p2..p6 to their widths. A new trunk family is one new file."""
     name = cfg.MODEL.BACKBONE.NAME
-    if name == "build_dla_from_vision_fpn_backbone":
-        return DLA(cfg.MODEL.DLA.TYPE, dtype=dtype)
-    if name == "build_resnet_from_vision_fpn_backbone":
-        return ResNet(cfg.MODEL.RESNETS.DEPTH, dtype=dtype)
-    raise ValueError(f"the reference has no backbone {name}")
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "trunks", f"{name}.py")
+    if not (name.isidentifier() and os.path.isfile(path)):
+        raise ValueError(f"the reference has no backbone {name!r}: no file {path}")
+    return importlib.import_module(f".trunks.{name}", __package__).build(cfg, dtype)
 
 
 class ROIHeads(nn.Module):

@@ -247,7 +247,7 @@ def run(ctx) -> dict:
 
     ok = failed = episodes = restores = 0
     window_s = restore_s = 0.0
-    per_episode = []
+    per_episode, episode_s = [], []
     while episodes == 0 or window_s < ctx.seconds:
         if episodes:
             restore_s += snapshot.restore(side, ctx.sync)
@@ -255,12 +255,14 @@ def run(ctx) -> dict:
         t0 = time.perf_counter()
         skips = [s for s in range(K, K + E) if not episode_step(s)]
         ctx.sync()
-        window_s += time.perf_counter() - t0
+        episode_s.append(time.perf_counter() - t0)
+        window_s += episode_s[-1]
         episodes += 1
         ok, failed = ok + E - len(skips), failed + len(skips)
         per_episode.append((skips, float(side.last_loss)))
     ctx.note(f"window {window_s:.3f} s, {episodes} episodes of steps {K}-{K + E - 1}, "
              f"{ok + failed} steps, {1e3 * window_s / (ok + failed):.3f} ms per step; "
+             f"seconds per episode {[round(t, 4) for t in episode_s]}; "
              f"skipped steps and last loss per episode {per_episode}; "
              f"set-up losses {seen['losses']}")
     peak_bytes = ctx.memory_peak()
