@@ -15,7 +15,9 @@ Stages (`utils.trace.stage`, marked on the device while a profiler records):
 the step's step.forward, step.backward and step.optimizer, and inside the
 forward step.trunk, step.rpn_head, step.anchor_labelling, step.proposals,
 step.roi_sampling, step.pooler, step.box and step.cube; the host span
-step.skip_decision holds the step's one synchronise.
+step.skip_decision holds the step's one synchronise; under a process
+group step.rank_means holds the step's own two all-reduces (the logs' mean
+and the BN running statistics' mean).
 """
 from __future__ import annotations
 
@@ -296,8 +298,10 @@ def make_train_step(cfg, model: CubeRCNN, optimizer: torch.optim.Optimizer,
                     p.grad = torch.zeros_like(p)
         if distributed:   # one fused all-reduce of the logs (JAX train.py:323-329)
             names = list(losses) + list(metrics)
-            means = dist_lib.mean_across_ranks(
-                [total.detach()] + [v.detach() for v in losses.values()] + list(metrics.values()))
+            with trace.stage("step.rank_means", device):
+                means = dist_lib.mean_across_ranks(
+                    [total.detach()] + [v.detach() for v in losses.values()]
+                    + list(metrics.values()))
             total = means[0]
             losses = dict(zip(names[:len(losses)], means[1:1 + len(losses)]))
             metrics = dict(zip(names[len(losses):], means[1 + len(losses):]))
@@ -313,8 +317,9 @@ def make_train_step(cfg, model: CubeRCNN, optimizer: torch.optim.Optimizer,
         lr = cfg.SOLVER.BASE_LR * lr_factor(cfg, state["step"])
         if ok:
             if distributed:
-                for b, m in zip(bn_stats, dist_lib.mean_across_ranks(bn_stats)):
-                    b.copy_(m)
+                with trace.stage("step.rank_means", device):
+                    for b, m in zip(bn_stats, dist_lib.mean_across_ranks(bn_stats)):
+                        b.copy_(m)
             with trace.stage("step.optimizer", device):
                 clip_gradients(cfg, params)
                 optimizer.step()

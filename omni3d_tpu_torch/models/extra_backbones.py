@@ -22,6 +22,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..utils import trace
 from .layers import BatchNorm2d, avg_pool, conv2d, max_pool
 
 
@@ -33,7 +34,9 @@ def _pyramid(p2, p3, p4, p5):
 
 class DenseLayer(nn.Module):
     """Pre-activation BN -> ReLU -> 1x1 (bn_size * growth) -> BN -> ReLU ->
-    3x3 (growth), concatenated onto the input."""
+    3x3 (growth), concatenated onto the input. In train mode the
+    concatenation is stage "trunk.dense_concat"; in eval mode it is bare,
+    so the inference graphs capture no markers."""
 
     def __init__(self, cin, growth=32, bn_size=4, dtype=None):
         super().__init__()
@@ -45,7 +48,10 @@ class DenseLayer(nn.Module):
     def forward(self, x):
         h = self.conv1(F.relu(self.norm1(x)))
         h = self.conv2(F.relu(self.norm2(h)))
-        return torch.cat([x, h], dim=1)
+        if not self.training:
+            return torch.cat([x, h], dim=1)
+        with trace.stage("trunk.dense_concat", x.device):
+            return torch.cat([x, h], dim=1)
 
 
 class DenseBlock(nn.Sequential):

@@ -38,7 +38,8 @@ PREFIX = "omni3d."
 STAGES = ("inference.trunk", "inference.proposals", "inference.box", "inference.cube",
           "step.forward", "step.trunk", "step.rpn_head", "step.anchor_labelling",
           "step.proposals", "step.roi_sampling", "step.pooler", "step.box", "step.cube",
-          "step.backward", "step.optimizer")      # at most 32: csrc/stage_mark.cu kMarks
+          "step.backward", "step.optimizer", "trunk.dense_concat",
+          "step.rank_means")      # at most 32: csrc/stage_mark.cu kMarks
 MARK = re.compile(r"omni3d_stage_mark(?:<|ILi)(\d+)")   # demangled or mangled
 _INDEX = {name: i for i, name in enumerate(STAGES)}
 _NULL = contextlib.nullcontext()

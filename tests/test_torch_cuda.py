@@ -960,8 +960,9 @@ def test_training_step_stage_readings_need_no_synchronise(device, monkeypatch):
               "step.roi_sampling", "step.cube", "step.optimizer"):
         want = sum(accepted) if n == "step.optimizer" else 3
         assert len(stages.get(n, [])) == want and min(stages[n]) > 0, (n, stages.get(n))
-    inner = [n for n in trace.STAGES if n.startswith("step.")
-             and n not in ("step.forward", "step.backward", "step.optimizer")]
+    # the stages inside the forward (step.rank_means follows it, under a process group only)
+    inner = [n for n in trace.STAGES if n.startswith("step.") and n not in
+             ("step.forward", "step.backward", "step.optimizer", "step.rank_means")]
     for k in range(3):
         assert sum(stages[n][k] for n in inner) <= stages["step.forward"][k] * (1 + 1e-6)
 

@@ -10,7 +10,9 @@ that tests/conftest.py makes):
   running statistics rtol 1e-4 / atol 1e-5, each parameter's update within
   1e-3 of the largest update in its tensor (plus one float32 ULP of the
   tensor's largest weight, the rounding of the update into the weight), as
-  tests/test_torch_train.py holds one device's step; both ranks bit-equal.
+  tests/test_torch_train.py holds one device's step; both ranks bit-equal;
+  each rank's step enters stage step.rank_means twice, after the backward
+  (the logs' mean) and before the optimizer (the BN running statistics').
   The batch and weights are ones where each half's single-device gradients
   in the two packages already agree that closely: on most random batches
   at these random weights they differ by 1-30% of a tensor's largest in
@@ -192,6 +194,12 @@ def test_two_rank_step_matches_the_jax_mesh_step(jax_run, tmp_path):
         assert float((u_got - u_want).abs().max()) <= tol, k
         moved += bool(u_want.abs().max() > 0)
     assert moved > 100
+    for r in (got, other):   # the accepted step's two means, each after its part of the step
+        stages = r["stages"]
+        assert stages.count("step.rank_means") == 2, stages
+        assert (stages.index("step.backward") < stages.index("step.rank_means")
+                < len(stages) - 1 - stages[::-1].index("step.rank_means")
+                < stages.index("step.optimizer")), stages
 
 
 def test_both_ranks_skip_when_one_rank_sees_nan(tmp_path):

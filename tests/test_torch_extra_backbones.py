@@ -102,6 +102,24 @@ def test_channel_shuffle_orders_channels_as_jax_and_torchvision():
         np.testing.assert_array_equal(got.permute(0, 2, 3, 1).numpy(), want)
 
 
+def test_densenet_concatenations_are_a_train_mode_stage(monkeypatch):
+    """DenseNet-121's forward enters stage trunk.dense_concat once per dense
+    layer in train mode (6 + 12 + 24 + 16 = 58); in eval mode it enters
+    none, so no marker is launched and the inference graphs capture none."""
+    from omni3d_tpu_torch.utils import trace
+    entered, real = [], trace.stage
+    monkeypatch.setattr(trace, "stage", lambda name, device: entered.append(name)
+                        or real(name, device))
+    trunk = teb.DenseNet121()
+    x = torch.randn(2, 3, 64, 64, generator=torch.Generator().manual_seed(0))
+    for train, want in ((True, 58), (False, 0)):
+        trunk.train(train)
+        entered.clear()
+        with torch.no_grad():
+            trunk(x)
+        assert entered == ["trunk.dense_concat"] * want
+
+
 def test_one_rank_ddp_step_equals_the_plain_step(tmp_path):
     """ShuffleNetV2 (every parameter gets a gradient, unlike most DLA
     trees) at the narrow widths: one step in a spawned process of a gloo

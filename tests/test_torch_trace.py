@@ -119,6 +119,13 @@ def test_inference_stages_in_order(model):
     assert set(INFERENCE + FORWARD) <= set(trace.STAGES)
 
 
+def test_the_dense_concat_and_rank_means_stages_have_markers():
+    """The stages inside DenseNet's train-mode trunk and around the step's
+    own collectives have marker ids, within csrc/stage_mark.cu's 32."""
+    assert {"trunk.dense_concat", "step.rank_means"} <= set(trace.STAGES)
+    assert len(trace.STAGES) == len(set(trace.STAGES)) <= 32
+
+
 def test_training_step_spans_in_order_and_nested(trainer):
     """One step emits forward, its eight stages inside it in order, then
     backward, the skip decision and the optimizer."""

@@ -113,7 +113,9 @@ def _snapshot(model, opt, step, logs):
 def step_worker(rank, world, out_dir, opts, state_dict, batch, noises, start_step):
     """One train step on this rank's slice of the global `batch` with the
     injected sampling noise noises[rank], from update `start_step` of the
-    LR schedule."""
+    LR schedule; beside its snapshot, the names of the stages the step
+    entered, in order."""
+    from omni3d_tpu_torch.utils import trace
     model, opt, sched, step = _trainer(opts, state_dict)
     with warnings.catch_warnings():   # the schedule advanced without updates
         warnings.simplefilter("ignore", UserWarning)
@@ -121,8 +123,15 @@ def step_worker(rank, world, out_dir, opts, state_dict, batch, noises, start_ste
             sched.step()
     step.state["step"] = start_step
     b = batch["images"].shape[0] // world
-    logs = step({k: v[rank * b:(rank + 1) * b] for k, v in batch.items()}, noise=noises[rank])
-    torch.save(_snapshot(model, opt, step, logs), os.path.join(out_dir, f"rank{rank}.pt"))
+    entered, real = [], trace.stage
+    trace.stage = lambda name, device: entered.append(name) or real(name, device)
+    try:
+        logs = step({k: v[rank * b:(rank + 1) * b] for k, v in batch.items()},
+                    noise=noises[rank])
+    finally:
+        trace.stage = real
+    torch.save(dict(_snapshot(model, opt, step, logs), stages=entered),
+               os.path.join(out_dir, f"rank{rank}.pt"))
 
 
 def nan_worker(rank, world, out_dir, opts, batch):
